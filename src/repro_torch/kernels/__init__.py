@@ -1,0 +1,13 @@
+"""Hand-written Hopper kernels for the dedup hot spots, with their plain
+PyTorch versions.
+
+Each kernel = ``csrc/<name>.cu`` (CUDA C++ for sm_90a, plain C interface,
+built by ``_build.py`` at first use) + a wrapper in ``ops.py`` + a plain
+version in ``ref.py``.  On the CPU the wrappers run the plain versions.
+"""
+from . import ref
+from .ops import (LAUNCHES, dedup_embedding, dedup_embedding_striped,
+                  dedup_matmul, reset_launches)
+
+__all__ = ["ref", "LAUNCHES", "reset_launches", "dedup_embedding",
+           "dedup_embedding_striped", "dedup_matmul"]
