@@ -24,9 +24,21 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      (x [64, 2048] against W1 [2048, 256]) within 1e-4 of numpy;
      then the serving pass once more under torch.profiler: device-busy
      share and device time by kernel;
-  6. a ``{"kernels": [...]}`` line with every ported kernel's launches
-     on the main path (phases 4 and 5), its times and its bound;
-  7. last line: ``{"ok": true, "device": {...}}``.
+  6. LM      — deepseek-7b at full width (d_model 4096, 32 heads of 128,
+     d_ff 11008, vocab 102,400; depth cut 30 -> 2), two variants that
+     differ in layer 1's feed-forward weights, committed to SQLite as
+     per-layer 2-D tensors in 64x64 blocks and served through
+     ``DedupDB.serve_lm`` in cuda mode: 8 batches alternating the
+     variants, 4 prompts of 512 tokens and 16 greedy steps each, every
+     batch a model switch whose prefill runs ``flash_attention``.  The
+     kernel is held against its plain version at the path's shape (bf16)
+     and at the reference's four test shapes (fp32); the same traffic in
+     torch mode on the card (plain attention) gives last-token prefill
+     logits within the stated bf16 tolerance, and one batch rerun in fp32
+     gives the same greedy tokens in both modes;
+  7. a ``{"kernels": [...]}`` line with every ported kernel's launches
+     on its path (phases 4, 5 and 6), its times and its bound;
+  8. last line: ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure (the script catches nothing), so any
 failed phase ends the run with a non-zero exit code and no result line.
@@ -42,12 +54,31 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
-# tensor cores (the kernels stay in IEEE fp32: no TF32)
+# tensor cores (the kernels stay in IEEE fp32: no TF32), bf16 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 VOCAB, D, VARIANTS, BATCHES, DOCS = 32768, 300, 4, 40, 32
 SEED = 0
+# LM phase: deepseek-7b at full width, depth cut 30 -> 2 and vocabulary
+# 102,400 -> 32,768: at the full vocabulary the host's Alg.-1 build and
+# SQLite commit of the two variants took 248 s on the card's host
+LM_ARCH, LM_DEPTH, LM_VOCAB = "deepseek-7b", 2, 32768
+LM_BATCHES, LM_PROMPTS, LM_PROMPT_LEN, LM_STEPS = 8, 4, 512, 16
+# last-token prefill logits, cuda mode (flash_attention: bf16 q, p kept
+# in fp32, output rounded to bf16) against torch mode (plain attend: p
+# rounded to bf16, output kept in fp32), both bf16 models: the attention
+# outputs differ by bf16 roundings, which the layers after them carry
+# into the logits.  Twice the 7.8e-2 of the first full-width run (max
+# |logit| 6.8); each run also prints both modes' distance from the fp32
+# model on one batch
+LM_LOGIT_TOL = 0.15
+# the reference's four flash shapes (tests/test_kernels.py), in fp32
+FLASH_CASES = [(2, 64, 64, 4, 2, 16, True, 0, 0.0),
+               (1, 32, 48, 4, 4, 8, True, 16, 30.0),
+               (2, 16, 64, 2, 1, 16, False, 0, 0.0),
+               (1, 48, 48, 8, 2, 32, True, 0, 50.0)]
 
 
 def log(msg: str) -> None:
@@ -108,9 +139,9 @@ def timings(torch, kernel, plain, library):
     return out
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flop_per_s=FP32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -298,6 +329,326 @@ def profile_serving(torch, url, heads, batches, capacity) -> None:
         log(f"[profile] {us / 1e3:9.3f}ms {n:6d}x  {key[:90]}")
 
 
+# -------------------------------------------------------------------- LM --
+def lm_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), num_layers=LM_DEPTH,
+                               vocab=LM_VOCAB)
+
+
+def lm_store(cfg, url):
+    """v0 from ``init_params``; v1 = v0 with the last layer's feed-forward
+    weights drawn again (a fine-tuned layer).  Per-layer 2-D tensors,
+    64x64 blocks, 8 a page, a narrow LSH bucket (r = 0.25: at the init
+    scale, r = 4 puts nearly every block in one bucket and the index
+    query grows quadratically), committed to SQLite.  Returns the
+    carried tensors served in bf16 and in fp32, and a record of the
+    build."""
+    import math
+    import numpy as np
+    from repro_torch.convert import lm_tensors
+    from repro_torch.core import (DedupConfig, LSHConfig, ModelStore,
+                                  StoreConfig)
+    from repro_torch.db import DedupDB
+    from repro_torch.models.transformer import init_params
+    from repro_torch.storage import open_backend
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED)
+    lm = lm_tensors(params, dtype=cfg.dtype, per_layer=True)
+    # the same arrays served in fp32 (views: no second copy)
+    lm32 = lm_tensors(params, dtype="float32", per_layer=True)
+    rng = np.random.default_rng(SEED + 1)
+    tuned = dict(lm.tensors)
+    last = LM_DEPTH - 1
+    for name, std in (("w1", 0.02), ("w3", 0.02),
+                      ("w2", 0.02 / math.sqrt(2 * LM_DEPTH))):
+        key = f"blocks/{last}/mlp/{name}"
+        x = rng.standard_normal(tuned[key].shape, dtype=np.float32)
+        x *= np.float32(std)
+        tuned[key] = x
+    t_init = time.perf_counter() - t0
+    store = ModelStore(StoreConfig(
+        dedup=DedupConfig(block_shape=(64, 64), lsh=LSHConfig(r=0.25),
+                          validate=False),
+        blocks_per_page=8))
+    t0 = time.perf_counter()
+    store.register("lm-v0", lm.tensors)
+    store.register("lm-v1", tuned)
+    pages = store.num_pages()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    DedupDB(store, open_backend(url)).commit()
+    t_commit = time.perf_counter() - t0
+    rec = dict(init_s=t_init, build_s=t_build, commit_s=t_commit,
+               pages=pages, dense_mib=store.dense_bytes() / 2 ** 20,
+               dedup_mib=store.storage_bytes() / 2 ** 20,
+               variant_pages=[len(store.model_pages(m))
+                              for m in ("lm-v0", "lm-v1")],
+               blocks=sum(a.size for a in lm.tensors.values()) // 4096)
+    log(f"[lm-store] {LM_ARCH} depth={LM_DEPTH} d_model={cfg.d_model} "
+        f"vocab={cfg.vocab} blocks_a_variant={rec['blocks']} "
+        f"pages={pages} variant_pages={rec['variant_pages']} "
+        f"dense={rec['dense_mib']:.0f}MiB dedup={rec['dedup_mib']:.0f}MiB "
+        f"init={t_init:.1f}s build={t_build:.1f}s commit={t_commit:.1f}s")
+    return lm, lm32, rec
+
+
+def lm_traffic(cfg):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 7)
+    return [(f"lm-v{b % 2}",
+             rng.integers(1, cfg.vocab, size=(LM_PROMPTS, LM_PROMPT_LEN))
+             .astype(np.int32)) for b in range(LM_BATCHES)]
+
+
+def serve_lm(torch, url, apis, rebuild, traffic, capacity, kernel_mode):
+    """Serve ``traffic`` out of the database on the card; (engine, db,
+    per-batch [(model, last-token prefill logits, tokens)], per-switch
+    wall seconds, wall seconds of the run)."""
+    from repro_torch.db import DedupDB
+    db = DedupDB.open(url)
+    engine = db.serve_lm(apis, {m: {"rebuild": rebuild} for m in apis},
+                         capacity_pages=capacity, scheduler="fifo",
+                         compute_backend="device", kernel_mode=kernel_mode,
+                         device=torch.device("cuda"))
+    served, switches = [], []
+    compute, load = engine._compute, engine._load_model
+
+    def recording_compute(model, prompts, steps):
+        out = compute(model, prompts, steps)
+        served.append((model, engine.last_logits.float().cpu().numpy(),
+                       out[0].copy()))
+        return out
+
+    def timed_load(model, grouped=False):
+        t0 = time.perf_counter()
+        out = load(model, grouped)
+        torch.cuda.synchronize()
+        switches.append(time.perf_counter() - t0)
+        return out
+
+    engine._compute, engine._load_model = recording_compute, timed_load
+    for model, prompts in traffic:
+        engine.submit(model, prompts, steps=LM_STEPS)
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    return engine, db, served, switches, time.perf_counter() - t0
+
+
+def flash_phase(torch, ops, ref, cfg):
+    """flash_attention against its plain version: at the LM path's shape
+    in bf16 (timed, with SDPA as the library yardstick) and at the
+    reference's four test shapes in fp32."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    B, S, H, hd = LM_PROMPTS, LM_PROMPT_LEN, cfg.num_heads, cfg.hd
+    K = cfg.kv_heads
+    q = torch.randn(B, S, H, hd, device=dev, generator=g).bfloat16()
+    k = torch.randn(B, S, K, hd, device=dev, generator=g).bfloat16()
+    v = torch.randn(B, S, K, hd, device=dev, generator=g).bfloat16()
+    n0 = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True).float()
+    want = ref.flash_attention(q, k, v, causal=True).float()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=2e-2, atol=2e-2):
+        raise AssertionError(f"flash_attention bf16 differs from its plain "
+                             f"version by {err} (tol 2e-2)")
+    errs32 = []
+    for (b_, sq, skv, h_, k_, d_, causal, window, cap) in FLASH_CASES:
+        qq = torch.randn(b_, sq, h_, d_, device=dev, generator=g)
+        kk = torch.randn(b_, skv, k_, d_, device=dev, generator=g)
+        vv = torch.randn(b_, skv, k_, d_, device=dev, generator=g)
+        a = ops.flash_attention(qq, kk, vv, causal=causal, window=window,
+                                softcap=cap)
+        w = ref.flash_attention(qq, kk, vv, causal=causal, window=window,
+                                softcap=cap)
+        torch.cuda.synchronize()
+        errs32.append(float((a - w).abs().max()))
+        if not torch.allclose(a, w, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"flash_attention fp32 {(b_, sq, skv, h_, k_, d_)} "
+                                 f"differs from its plain version by "
+                                 f"{errs32[-1]} (rtol 1e-4, atol 1e-5)")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = timings(torch, lambda: ops.flash_attention(q, k, v, causal=True),
+                 lambda: ref.flash_attention(q, k, v, causal=True),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                        is_causal=True))
+    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2
+    pairs = B * H * S * (S + 1) // 2            # visible (query, key) pairs
+    flops = 2 * 2 * pairs * hd                  # q k^T and p v
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    rec = dict(kernel="flash_attention", max_abs_err=err,
+               max_abs_err_fp32=max(errs32),
+               tolerance="2e-2 bf16; rtol 1e-4 atol 1e-5 fp32", **ms,
+               bound_ms=b_ms, bytes=nbytes, flops=flops, bound_by=b_by,
+               launches=ops.LAUNCHES["flash_attention"] - n0,
+               shapes=f"q,k,v[{B},{S},{H},{hd}] bf16 causal; the four "
+                      f"reference shapes in fp32")
+    log(json.dumps({"phase": "kernel-check", **rec}))
+    return rec
+
+
+def time_lm_steps(torch, engine, api, prompts):
+    """Device milliseconds of one prefill and of one decode step on the
+    engine's resident model (CUDA events, after a warm-up)."""
+    params = engine._params
+    toks = torch.as_tensor(prompts, device=params["embed"].device)
+    max_len = LM_PROMPT_LEN + LM_STEPS
+
+    def run(n_decode):
+        logits, cache = api.prefill(params, {"tokens": toks}, max_len)
+        nxt = logits.argmax(-1)
+        for _ in range(n_decode):
+            logits, cache = api.decode(params, cache, nxt)
+            nxt = logits.argmax(-1)
+        return nxt
+
+    run(2)
+    out = {}
+    for key, n in (("prefill", 0), ("prefill+decode", LM_STEPS - 1)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            run(n)
+        end.record()
+        end.synchronize()
+        out[key] = start.elapsed_time(end) / 3
+    prefill = out["prefill"]
+    decode = (out["prefill+decode"] - prefill) / (LM_STEPS - 1)
+    return prefill, decode
+
+
+def profile_lm_steps(torch, engine, api, prompts) -> None:
+    """One prefill and the decode steps of a batch under torch.profiler:
+    device-busy share of the window and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    params = engine._params
+    toks = torch.as_tensor(prompts, device=params["embed"].device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, {"tokens": toks},
+                                    LM_PROMPT_LEN + LM_STEPS)
+        for _ in range(LM_STEPS - 1):
+            logits, cache = api.decode(params, cache, logits.argmax(-1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+    busy_us = sum(r[1] for r in rows)
+    log(f"[lm-profile] wall={wall * 1e3:.1f}ms device_busy="
+        f"{busy_us / 1e3:.3f}ms busy_share={busy_us / 1e6 / wall:.4f} "
+        f"(1 prefill + {LM_STEPS - 1} decode steps)")
+    for key, us, n in sorted(rows, key=lambda r: -r[1])[:10]:
+        log(f"[lm-profile] {us / 1e3:9.3f}ms {n:6d}x  {key[:90]}")
+
+
+def lm_phase(torch, ops, ref, tmpdir):
+    """The LM path: returns (flash record, flash launches on the path)."""
+    import numpy as np
+    from repro_torch.models import build
+    cfg = lm_config()
+    flash = flash_phase(torch, ops, ref, cfg)
+    url = f"sqlite:///{Path(tmpdir) / 'lm.db'}"
+    lm, lm32, store_rec = lm_store(cfg, url)
+    traffic = lm_traffic(cfg)
+    capacity = max(store_rec["variant_pages"])  # the larger variant's set
+    kernel_apis = {m: build(cfg) for m in ("lm-v0", "lm-v1")}
+    plain_apis = {m: build(cfg, attention="plain") for m in kernel_apis}
+
+    ops.reset_launches()
+    engine, db, served, switches, wall = serve_lm(
+        torch, url, kernel_apis, lm.rebuild, traffic, capacity, "cuda")
+    launches = dict(ops.LAUNCHES)
+    st = engine.stats
+    pool = engine.server.device_pool
+    log(f"[lm-launches] {launches}")
+    tokens = LM_BATCHES * LM_PROMPTS * LM_STEPS
+    log(f"[lm-serve] batches={st.batches} device_batches={st.device_batches} "
+        f"dense_fallbacks={st.dense_fallbacks} slab={pool.capacity} "
+        f"loads={pool.loads} evicts={pool.evicts} wall={wall:.3f}s "
+        f"compute={st.compute_seconds:.3f}s "
+        f"tokens_per_s_wall={tokens / wall:.1f} "
+        f"tokens_per_s_compute={tokens / st.compute_seconds:.1f}")
+    log(f"[lm-switch] first={switches[0]:.3f}s "
+        f"rest_mean={float(np.mean(switches[1:])):.3f}s "
+        f"rest_max={max(switches[1:]):.3f}s pages_moved={st.transfer_pages} "
+        f"transfer_ops={st.transfer_groups} "
+        f"transfer_device={st.transfer_seconds * 1e3:.1f}ms "
+        f"virtual_fetch={st.fetch_seconds:.3f}s")
+    if st.batches != LM_BATCHES or st.device_batches != LM_BATCHES:
+        raise AssertionError(f"LM device_batches={st.device_batches} of "
+                             f"{st.batches}, wanted {LM_BATCHES}")
+    if st.dense_fallbacks != 0:
+        raise AssertionError(f"LM dense_fallbacks={st.dense_fallbacks}")
+    if launches["flash_attention"] < LM_DEPTH * LM_BATCHES:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times, wanted "
+                             f">= {LM_DEPTH * LM_BATCHES}")
+    prefill_ms, decode_ms = time_lm_steps(torch, engine,
+                                          kernel_apis["lm-v1"],
+                                          traffic[-1][1])
+    log(f"[lm-time] prefill={prefill_ms:.2f}ms ({LM_PROMPTS}x"
+        f"{LM_PROMPT_LEN} tokens) decode={decode_ms:.3f}ms a step "
+        f"({LM_PROMPTS} tokens)")
+    profile_lm_steps(torch, engine, kernel_apis["lm-v1"], traffic[-1][1])
+
+    # the same traffic in torch mode on the card, plain attention
+    t_engine, t_db, t_served, _, t_wall = serve_lm(
+        torch, url, plain_apis, lm.rebuild, traffic, capacity, "torch")
+    worst = 0.0
+    for (m, a, ta), (tm, b, tb) in zip(served, t_served):
+        if m != tm or a.shape != (LM_PROMPTS, 1, cfg.vocab) \
+                or not np.isfinite(a).all() or ta.shape != (LM_PROMPTS,
+                                                            LM_STEPS):
+            raise AssertionError(f"LM batch of {m}: logits {a.shape}, "
+                                 f"tokens {ta.shape}, finite="
+                                 f"{np.isfinite(a).all()}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    scale = max(float(np.abs(b).max()) for _, b, _ in t_served)
+    log(f"[lm-check] prefill logits cuda vs torch mode (bf16): "
+        f"max_abs_err={worst:.3e} (tol {LM_LOGIT_TOL}, max |logit| "
+        f"{scale:.2f}) torch_wall={t_wall:.3f}s")
+    if worst > LM_LOGIT_TOL:
+        raise AssertionError(f"LM prefill logits differ by {worst} "
+                             f"(> {LM_LOGIT_TOL})")
+
+    # one batch rerun in fp32 in both modes: the same greedy tokens (the
+    # last batch's variant is resident: the rerun moves no page)
+    import dataclasses
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model, prompts = traffic[-1]
+    bf16_last = {"kernel": served[-1][1], "plain": t_served[-1][1]}
+    toks32, logits32 = {}, {}
+    for eng, attention in ((engine, "kernel"), (t_engine, "plain")):
+        eng.templates = {m: {"rebuild": lm32.rebuild} for m in eng.templates}
+        eng.apis = {m: build(cfg32, attention=attention) for m in eng.apis}
+        eng._resident_model = None
+        toks32[attention], _ = eng.generate(model, prompts, LM_STEPS)
+        logits32[attention] = eng.last_logits.float().cpu().numpy()
+    same = np.array_equal(toks32["kernel"], toks32["plain"])
+    log(f"[lm-check] fp32 greedy tokens cuda vs torch mode: equal={same} "
+        f"({toks32['kernel'].shape}); last batch's prefill logits, "
+        f"distance from the fp32 model: cuda bf16 "
+        f"{float(np.abs(bf16_last['kernel'] - logits32['kernel']).max()):.3e}"
+        f", torch bf16 "
+        f"{float(np.abs(bf16_last['plain'] - logits32['plain']).max()):.3e}, "
+        f"fp32 cuda vs torch "
+        f"{float(np.abs(logits32['kernel'] - logits32['plain']).max()):.3e}")
+    if not same:
+        raise AssertionError("fp32 greedy tokens differ between cuda and "
+                             "torch mode")
+    db.close()
+    t_db.close()
+    return flash, launches["flash_attention"], store_rec
+
+
 def main() -> int:
     # ------------------------------------------------------ 1. device --
     import torch
@@ -449,15 +800,23 @@ def main() -> int:
     log(f"[check] FFNN device_matmul vs numpy x @ W1: "
         f"max_abs_err={ffnn_err:.3e} (tol 1e-4)")
     profile_serving(torch, url, heads, batches, capacity)
+
+    # ----------------------------------------------------------- 6. LM --
+    t0 = time.perf_counter()
+    recs["flash_attention"], launches["flash_attention"], _ = lm_phase(
+        torch, ops, ref, tmp.name)
+    log(f"[lm] seconds={time.perf_counter() - t0:.1f}")
     tmp.cleanup()
 
-    # ------------------------------------------------------ 6. summary --
+    # ------------------------------------------------------ 7. summary --
     csrc = "src/repro_torch/kernels/csrc"
     meta = {
         "dedup_embedding": ("src/repro/kernels/dedup_embedding.py:52",
                             f"{csrc}/dedup_embedding.cu"),
         "dedup_matmul": ("src/repro/kernels/dedup_matmul.py:75",
                          f"{csrc}/dedup_matmul.cu"),
+        "flash_attention": ("src/repro/kernels/flash_attention.py:94",
+                            f"{csrc}/flash_attention.cu"),
     }
     kernels = []
     for name, rec in recs.items():

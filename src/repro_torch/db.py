@@ -18,10 +18,12 @@ wires a :class:`~repro_torch.serving.engine.WeightServer` whose miss
 costs are charged from a :meth:`StorageModel.from_backend`
 microbenchmark calibration of the very backend serving the pages.
 
+    engine = db.serve_lm(apis, templates)        # LM prefill/decode
+
 By default the server computes on the GPU (``compute_backend="device"``,
 ``kernel_mode="auto"`` = the CUDA kernels); a CPU caller asks for
 ``kernel_mode="torch"``/``"host"`` or ``compute_backend="numpy"``.
-The LM engine and sharded slabs are later slices of the port.
+Sharded slabs are a later slice of the port.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ import numpy as np
 
 from .core.dedup import DedupResult, Evaluator
 from .core.store import ModelStore, StoreConfig
-from .serving.engine import EmbeddingServingEngine, StorageModel, WeightServer
+from .serving.engine import (EmbeddingServingEngine, LMServingEngine,
+                             StorageModel, WeightServer)
 from .storage import PageBackend, open_backend
 
 __all__ = ["DedupDB"]
@@ -105,12 +108,14 @@ class DedupDB:
                       compute_backend: str = "device",
                       kernel_mode: str = "auto",
                       shards: int = 1,
-                      transfer: str = "grouped") -> WeightServer:
+                      transfer: str = "grouped",
+                      device=None) -> WeightServer:
         """ModelStore + Eq.-2 buffer pool + calibrated storage clock.
         ``compute_backend="device"`` serves through the device page slab
         (DESIGN.md §3); slab faults then source pages straight from this
         database's backend.  ``transfer`` selects the host->device
-        movement path (DESIGN.md §6)."""
+        movement path (DESIGN.md §6); ``device`` places the slab (see
+        :class:`WeightServer`)."""
         if shards > 1:
             raise NotImplementedError(
                 "shards > 1: the sharded slab (ShardedWeightServer) is a "
@@ -120,7 +125,7 @@ class DedupDB:
         return WeightServer(self.store, capacity_pages, policy,
                             storage or self.storage_model(),
                             backend=compute_backend, kernel_mode=kernel_mode,
-                            transfer=transfer)
+                            transfer=transfer, device=device)
 
     def serve_embedding(self, heads: Dict[str, np.ndarray],
                         capacity_pages: Optional[int] = None,
@@ -149,9 +154,32 @@ class DedupDB:
                                       scheduler=scheduler,
                                       prefetcher=prefetcher, overlap=overlap)
 
-    def serve_lm(self, *args, **kwargs):
-        """LM variants via prefill/decode: not ported yet."""
-        raise NotImplementedError(
-            "serve_lm: the LM serving engine is slice 2 of the port "
-            "(LMServingEngine, unblock, the dense transformer, "
-            "flash_attention)")
+    def serve_lm(self, apis: Dict[str, object],
+                 params_template: Dict[str, dict],
+                 capacity_pages: Optional[int] = None,
+                 policy: str = "optimized_mru",
+                 scheduler="fifo",
+                 overlap: bool = False, prefetch: bool = False,
+                 compute_backend: str = "device",
+                 kernel_mode: str = "auto",
+                 storage: Optional[StorageModel] = None,
+                 shards: int = 1, placement: str = "sharers",
+                 transfer: str = "grouped",
+                 device=None,
+                 ) -> LMServingEngine:
+        """LM variants served via prefill/decode with weights faulted
+        through the pool (and the backend) on model switch.  ``apis`` and
+        ``params_template`` as :class:`LMServingEngine` takes them;
+        ``placement`` belongs to the sharded slab (a later slice)."""
+        server = self.weight_server(capacity_pages, policy, storage,
+                                    compute_backend, kernel_mode,
+                                    shards=shards, transfer=transfer,
+                                    device=device)
+        prefetcher = None
+        if prefetch:
+            from .serving.prefetch import Prefetcher
+            prefetcher = Prefetcher(server)
+            overlap = True
+        return LMServingEngine(server, apis, params_template,
+                               scheduler=scheduler, prefetcher=prefetcher,
+                               overlap=overlap)

@@ -28,13 +28,16 @@ BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int64
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 #: kernel -> (C entry point, argtypes); every entry returns a cudaError_t
 KERNELS = {
     "dedup_embedding": ("dedup_embedding_striped",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "dedup_matmul": ("dedup_matmul",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_attention": ("flash_attention",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _I, _I, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,4 @@
-"""Wrappers of the dedup kernels (counterparts of ``repro.kernels.ops``).
+"""Wrappers of the port's kernels (counterparts of ``repro.kernels.ops``).
 
 A tensor on the CPU goes to the plain PyTorch version in :mod:`.ref`.  A
 CUDA tensor launches the hand-written kernel from ``csrc/`` on the
@@ -20,12 +20,12 @@ import torch
 from . import _build, ref
 
 __all__ = ["LAUNCHES", "reset_launches", "dedup_matmul", "dedup_embedding",
-           "dedup_embedding_striped", "ref"]
+           "dedup_embedding_striped", "flash_attention", "ref"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNELS}
 
-_MATMUL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
@@ -73,7 +73,7 @@ def dedup_matmul(x, pool, block_map, out_dtype=None):
     if x.shape[-1] != nkb * bk:
         raise ValueError(f"dedup_matmul: x has K={x.shape[-1]}, "
                          f"the block map covers {nkb * bk}")
-    if x.dtype not in _MATMUL_DTYPES or pool.dtype != x.dtype:
+    if x.dtype not in _DTYPES or pool.dtype != x.dtype:
         raise ValueError(f"dedup_matmul: x {x.dtype} / pool {pool.dtype}; "
                          "the kernel takes float32 or bfloat16 for both")
     if (out_dtype or x.dtype) != x.dtype:
@@ -88,7 +88,7 @@ def dedup_matmul(x, pool, block_map, out_dtype=None):
     with torch.cuda.device(x.device):
         err = fn(x2.data_ptr(), pool.data_ptr(), block_map.data_ptr(),
                  out.data_ptr(), M, nkb, nnb, bk, bn,
-                 _MATMUL_DTYPES[x.dtype], _stream(x.device))
+                 _DTYPES[x.dtype], _stream(x.device))
     _launched("dedup_matmul", err)
     return out.reshape(lead + (nnb * bn,))
 
@@ -137,3 +137,53 @@ def dedup_embedding(ids, pool, row_block_map):
     out = dedup_embedding_striped(ids.reshape(-1), pool,
                                   row_block_map.reshape(-1, 1))
     return out.reshape(lead + (out.shape[-1],))
+
+
+# --------------------------------------------------------- flash_attention --
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    scale=None):
+    """q [B, Sq, H, hd]; k, v [B, Skv, K, hd] (GQA, H % K == 0) ->
+    [B, Sq, H, hd] in q's dtype.
+
+    On CUDA the kernel masks ragged Sq and Skv itself (no padding pass)
+    and takes float32 or bfloat16 for all three tensors, hd <= 256.  It
+    skips key tiles the mask hides entirely unless the call can produce a
+    row with no visible key, which then keeps the plain version's mean of
+    v."""
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or Kh == 0 or H % Kh:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
+                         f"match k {tuple(k.shape)}")
+    if not 0 < hd <= 256 or Skv == 0:
+        raise ValueError(f"flash_attention: hd={hd}, Skv={Skv}; the kernel "
+                         "takes 0 < hd <= 256 and Skv > 0")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q {q.dtype}, k {k.dtype}, v "
+                         f"{v.dtype}; the kernel takes one dtype, float32 "
+                         "or bfloat16")
+    _check_cuda("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    if B == 0 or Sq == 0:
+        return out
+    scale = hd ** -0.5 if scale is None else float(scale)
+    # a row with no visible key exists only if some query sits a whole
+    # window past the last key; only then must every tile be visited
+    skip = not (window and Sq >= Skv + window)
+    fn = _build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, Sq, Skv, H, Kh, hd, int(bool(causal)), int(window),
+                 float(softcap), scale, int(skip), _DTYPES[q.dtype],
+                 _stream(q.device))
+    _launched("flash_attention", err)
+    return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the dedup kernels (the allclose ground truth).
+"""Plain PyTorch versions of the port's kernels (the allclose ground truth).
 
 Counterparts of ``repro.kernels.ref``.  They run on any device: the CPU
 tests use them as the port's compute path, and ``chip_smoke.py`` holds
@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 F32 = torch.float32
+NEG_INF = -2.0e38
 
 
 def materialize_virtual(pool, block_map, K: int, N: int):
@@ -61,3 +62,30 @@ def dedup_embedding_striped(ids, pool, block_map, width=None):
     out = flat_rows[blk * bh + (ids % bh)[:, None]]        # [B, gw, bw]
     out = out.reshape(ids.shape[0], gw * bw)
     return out if width is None else out[:, :width]
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    scale=None):
+    """q [B, Sq, H, hd]; k, v [B, Skv, K, hd] -> [B, Sq, H, hd].
+
+    fp32 throughout, with the finite ``-2e38`` mask: a row whose every
+    key is masked gets ``p = 1`` for each key, i.e. the mean of v."""
+    B, Sq, H, hd = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    scale = scale if scale is not None else hd ** -0.5
+    qg = (q.to(F32) * scale).reshape(B, Sq, Kh, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(F32))
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Skv, device=q.device)[None, :]
+    m = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= qp >= kp
+    if window:
+        m &= (qp - kp) < window
+    s = torch.where(m[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(F32))
+    return o.reshape(B, Sq, H, hd).to(q.dtype)

@@ -15,11 +15,17 @@ object store) and served back *live* through ``repro_torch.db.DedupDB``.
 with the CUDA kernels and needs an NVIDIA GPU of capability (9, 0);
 ``--backend numpy`` is the host simulator.
 
+``--engine lm`` serves reduced deepseek-7b variants with prefill and
+``--lm-steps`` greedy decode steps; their weights fault in through the
+page pool at every model switch, and prefill attention runs the
+``flash_attention`` kernel on the card.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --models 6 --batches 60
   PYTHONPATH=src python -m repro_torch.launch.serve --backend numpy
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --store-url sqlite:////tmp/m.db
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine lm --batches 8
 """
 from __future__ import annotations
 
@@ -30,8 +36,8 @@ import numpy as np
 from ..core import DedupConfig, LSHConfig, ModelStore, StoreConfig
 from ..core.lsh import estimate_r
 from ..data.pipeline import SyntheticTextTask
-from ..serving.engine import (EmbeddingServingEngine, ServeStats,
-                              StorageModel, WeightServer)
+from ..serving.engine import (EmbeddingServingEngine, LMServingEngine,
+                              ServeStats, StorageModel, WeightServer)
 from ..serving.prefetch import Prefetcher
 from ..serving.scheduler import SCHEDULERS
 
@@ -58,6 +64,29 @@ def build_store(task: SyntheticTextTask, num_models: int,
         store.register(name, {"embedding": emb})
         heads[name] = task.train_head(emb, variant=v)
     return store, heads
+
+
+def build_lm_store(cfg, num_models: int, seed: int = 0):
+    """``num_models`` variants of an LM: numpy weights from ``seed``
+    (``models.transformer.init_params``), variant v shifted by 1e-5 * v,
+    registered into a store of 32x32 blocks, 8 a page, as the reference
+    CLI builds its LM store.  Returns (store, names, lm_tensors)."""
+    from ..convert import lm_tensors
+    from ..models.transformer import init_params
+    lm = lm_tensors(init_params(cfg, seed), dtype=cfg.dtype)
+    store = ModelStore(StoreConfig(
+        dedup=DedupConfig(block_shape=(32, 32),
+                          lsh=LSHConfig(num_bands=8, rows_per_band=2,
+                                        r=4.0, collision_threshold=6),
+                          validate=False),
+        blocks_per_page=8))
+    names = []
+    for v in range(num_models):
+        name = f"lm-v{v}"
+        names.append(name)
+        delta = 0.0 if v == 0 else 1e-5 * v
+        store.register(name, {k: t + delta for k, t in lm.tensors.items()})
+    return store, names, lm
 
 
 def _print_stats(args, stats: ServeStats, server: WeightServer,
@@ -178,12 +207,70 @@ def serve_embedding(args) -> tuple:
     return stats, server
 
 
+def serve_lm(args) -> tuple:
+    """Reduced-LM variants served with prefill/decode; weights fault in
+    through the dedup page pool (and, with --store-url, the backend) at
+    every model switch."""
+    from ..configs import get_config, reduced
+    from ..models import build
+
+    cfg = reduced(get_config("deepseek-7b"))
+    num_models = max(2, min(args.models, 3))
+    store, names, lm = build_lm_store(cfg, num_models, seed=args.seed)
+    print(f"[store] lm models={num_models} pages={store.num_pages()} "
+          f"reduction={store.dense_bytes()/max(1, store.storage_bytes()):.2f}x")
+
+    api = build(cfg)
+    apis = {name: api for name in names}
+    templates = {name: {"rebuild": lm.rebuild} for name in names}
+    # the slab holds one variant's page set unless told otherwise: a
+    # model switch pins that set as one group, and on the card a group
+    # the slab cannot hold is an error
+    cap = args.capacity_pages or max(len(store.model_pages(n))
+                                     for n in names)
+    if args.store_url:
+        db, _ = _open_db(args, store)
+        engine = db.serve_lm(apis, templates, capacity_pages=cap,
+                             policy=args.policy, scheduler=args.scheduler,
+                             overlap=args.overlap, prefetch=args.prefetch,
+                             compute_backend=args.backend,
+                             transfer=args.transfer)
+        server = engine.server
+    else:
+        server = WeightServer(store, cap, args.policy,
+                              StorageModel(args.storage),
+                              backend=args.backend, transfer=args.transfer)
+        engine = LMServingEngine(server, apis, templates,
+                                 scheduler=args.scheduler,
+                                 overlap=args.overlap)
+    rng = np.random.default_rng(args.seed)
+    for b in range(args.batches):
+        name = names[int(rng.integers(0, num_models))]
+        prompts = rng.integers(1, 64, size=(2, 8)).astype(np.int32)
+        engine.submit(name, prompts, steps=args.lm_steps)
+    stats = engine.run()
+    _print_stats(args, stats, server, engine)
+    return stats, server
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--engine", default="embedding",
+                    choices=("embedding", "lm"),
+                    help="embedding: the word2vec multi-model scenario; "
+                         "lm: reduced deepseek-7b variants with prefill/"
+                         "decode.  Their weights are drawn with numpy from "
+                         "--seed (JAX's PRNG cannot be reproduced in "
+                         "torch), so they are not the reference CLI's")
+    ap.add_argument("--lm-steps", type=int, default=4,
+                    help="greedy decode steps per LM batch")
     ap.add_argument("--models", type=int, default=6)
     ap.add_argument("--batches", type=int, default=60)
     ap.add_argument("--batch-size", type=int, default=32)
-    ap.add_argument("--capacity-pages", type=int, default=24)
+    ap.add_argument("--capacity-pages", type=int, default=None,
+                    help="slab / pool pages (default: 24 for the "
+                         "embedding engine; one variant's page set for "
+                         "the LM engine)")
     ap.add_argument("--policy", default="optimized_mru")
     ap.add_argument("--storage", default="ssd",
                     choices=list(("ssd", "hdd", "nvme", "dram")))
@@ -228,6 +315,10 @@ def main(argv=None):
         raise SystemExit("--faults requires --store-url (faults inject "
                          "at the storage backend; the in-process store "
                          "has no backend to wrap)")
+    if args.engine == "lm":
+        return serve_lm(args)
+    if args.capacity_pages is None:
+        args.capacity_pages = 24
     return serve_embedding(args)
 
 

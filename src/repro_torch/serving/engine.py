@@ -29,7 +29,9 @@ Components:
     :class:`~repro_torch.serving.prefetch.Prefetcher` pulls hot models'
     pages ahead of demand.
 
-The LM engine is not ported yet (a later slice of the port).
+  * :class:`LMServingEngine` — LM variants served with batched prefill
+    and decode; a model switch faults the variant's page working set into
+    the device slab and reassembles every tensor on the device.
 """
 from __future__ import annotations
 
@@ -300,7 +302,9 @@ class WeightServer:
     raises without a CUDA device of capability (9, 0); "torch" the plain
     PyTorch versions; "host" numpy gathers from the slab's host mirror.
     See DevicePagePool's docstring).  In cuda mode a batch the slab
-    cannot serve raises (:meth:`host_fallback_allowed`).
+    cannot serve raises (:meth:`host_fallback_allowed`).  ``device``
+    places the slab (the CUDA device in cuda mode; the CPU by default in
+    torch mode, where a CUDA device runs the plain versions on the card).
     ``backend="numpy"`` is how a caller chooses the host simulator: the
     pool is a policy simulator and weights are materialized on the host.
     """
@@ -313,7 +317,8 @@ class WeightServer:
                  backend: str = "device", kernel_mode: str = "auto",
                  transfer: str = "grouped",
                  charge_transfer: bool = False,
-                 hbm: Optional[StorageModel] = None):
+                 hbm: Optional[StorageModel] = None,
+                 device=None):
         if backend not in ("numpy", "device"):
             raise ValueError(f"unknown backend {backend!r}")
         if transfer not in self.TRANSFERS:
@@ -327,7 +332,8 @@ class WeightServer:
         if backend == "device":
             from .device_pool import DevicePagePool
             self.device_pool = DevicePagePool(store, capacity_pages,
-                                              kernel_mode=kernel_mode)
+                                              kernel_mode=kernel_mode,
+                                              device=device)
             on_load = self.device_pool.load
             on_evict = self.device_pool.evict
             if transfer == "grouped":
@@ -840,6 +846,211 @@ class EmbeddingServingEngine(_PrefetchingEngine):
                 tr.event("schedule", kind="policy",
                          policy=self.scheduler.name, model=batch.model)
             self._infer(batch)
+            self._maybe_prefetch()
+            n += 1
+            if max_batches and n >= max_batches:
+                break
+        if self.overlap:
+            self.stats.timeline_seconds = self.timeline.makespan
+        return self.stats
+
+
+# --------------------------------------------------------------- LM serving --
+class LMServingEngine(_PrefetchingEngine):
+    """Serve LM variants with batched prefill/decode; weights are faulted
+    in through the dedup page pool on model switch.
+
+    ``generate`` keeps the direct call path; ``submit``/``run`` drive the
+    same scheduler/timeline machinery as the embedding engine, with a
+    model switch's whole page working set issued as one fetch group.
+
+    ``apis``: model -> :class:`~repro_torch.models.ModelAPI`;
+    ``params_template``: model -> ``{"rebuild": fn}``, where
+    ``fn(tensors, device=None)`` turns the served tensors into the
+    model's params (``repro_torch.convert.lm_tensors``).  The params are
+    rebuilt once a model switch (the reference rebuilds them once a
+    batch) and the prompts run on their device."""
+
+    def __init__(self, server: WeightServer, apis: Dict[str, object],
+                 params_template: Dict[str, dict],
+                 scheduler="fifo", prefetcher=None, overlap: bool = False):
+        self.server = server
+        self.apis = apis
+        self.templates = params_template     # model -> {"rebuild": fn}
+        self.scheduler: BatchScheduler = make_scheduler(scheduler)
+        self.prefetcher = prefetcher
+        if prefetcher is not None and hasattr(prefetcher, "attach_scheduler"):
+            prefetcher.attach_scheduler(self.scheduler)
+        self.overlap = overlap
+        self.timeline = FetchComputeTimeline()
+        self.stats = ServeStats(overlapped=overlap)
+        self.last_tokens: Optional[np.ndarray] = None  # test/frontend hook
+        self.last_logits: Optional[torch.Tensor] = None  # prefill logits
+        self._resident_model: Optional[str] = None
+        self._params = None
+        self._params_gen = -1          # packing generation of _params
+
+    def _param_device(self):
+        """Where host-materialized tensors go: the slab's device, the CPU
+        without one."""
+        pool = self.server.device_pool
+        return pool.device if pool is not None and pool.device is not None \
+            else torch.device("cpu")
+
+    def _load_model(self, model: str, grouped: bool = False) -> float:
+        """Fault the model's weights through the pool; returns the
+        virtual fetch seconds (0 when already resident).
+
+        On the device backend the model switch never densifies on the
+        host: the page working set is faulted into the device slab and
+        each tensor is reassembled *on the device* from resident slab
+        blocks (``WeightServer.device_tensor``).  The CPU kernel modes
+        fall back to host materialization when the slab cannot hold the
+        working set or the fetch fails past its retry budget, as the
+        reference does; cuda mode raises instead."""
+        if self._resident_model == model and \
+                self.server.store.packing_current(self._params_gen):
+            return 0.0
+        names = list(self.server.store.dedup.models[model].tensors)
+        self._params = self._resident_model = None   # free the old model
+        with get_tracer().span("model_switch", kind="engine",
+                               model=model, grouped=grouped) as sp:
+            if self.server.backend == "device":
+                pages = self.server.store.model_pages(model)
+                try:
+                    if grouped:
+                        fetch_t = self.server.access_pages_grouped(model,
+                                                                   pages)
+                    else:
+                        fetch_t = self.server.access_pages(model, pages)
+                    tensors = {}
+                    for name in names:
+                        dt = self.server.device_tensor(model, name)
+                        if dt is None:
+                            tensors = None
+                            break
+                        tensors[name] = dt
+                except StorageFaultError:
+                    # in the CPU modes degrade this model switch to host
+                    # materialization (fresh retry budget); on the card,
+                    # raise
+                    if not self.server.host_fallback_allowed():
+                        raise
+                    self.stats.degraded_batches += 1
+                    fetch_t = self.server._charge_faults()
+                    tensors = None
+                if tensors is None:
+                    if not self.server.host_fallback_allowed():
+                        raise RuntimeError(
+                            f"model switch to {model!r}: its pages are not "
+                            f"all resident on the slab, and cuda mode does "
+                            f"not fall back to the host")
+                    self.stats.dense_fallbacks += 1
+                    tensors = {name: self.server.store.materialize(model,
+                                                                   name)
+                               for name in names}
+                    fetch_t += self.server._charge_faults()
+                else:
+                    self.stats.device_batches += 1
+            elif grouped:
+                fetch_t = self.server.access_pages_grouped(
+                    model, self.server.store.model_pages(model))
+                tensors = {name: self.server.store.materialize(model, name)
+                           for name in names}
+            else:
+                t0 = self.server.stats.fetch_seconds
+                tensors = {}
+                for name in names:
+                    tensors[name] = self.server.fetch_tensor(model, name)
+                fetch_t = self.server.stats.fetch_seconds - t0
+            sp.set(seconds=fetch_t, tensors=len(names))
+        self._params = self.templates[model]["rebuild"](
+            tensors, device=self._param_device())
+        self._resident_model = model
+        self._params_gen = self.server.store.pack_generation
+        return fetch_t
+
+    def _compute(self, model: str, prompts: np.ndarray, steps: int
+                 ) -> Tuple[np.ndarray, float]:
+        """Prefill, then greedy decode with the tokens kept on the device;
+        the timer ends after the tokens reach the host, so it holds the
+        device work."""
+        params, api = self._params, self.apis[model]
+        dev = params["embed"].device
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(np.asarray(prompts), device=dev)
+        logits, cache = api.prefill(params, {"tokens": tokens},
+                                    prompts.shape[1] + steps)
+        self.last_logits = logits
+        out = [logits.argmax(-1)]
+        for _ in range(steps - 1):
+            logits, cache = api.decode(params, cache, out[-1])
+            out.append(logits.argmax(-1))
+        # batch boundary: the tokens leave the device once, here
+        toks = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()  # repro: allow-host
+        dt = time.perf_counter() - t0
+        return toks, dt
+
+    def generate(self, model: str, prompts: np.ndarray,
+                 steps: int = 8) -> Tuple[np.ndarray, float]:
+        snap = self._transfer_snap()
+        fetch_t = self._load_model(model)
+        out, dt = self._compute(model, prompts, steps)
+        self.last_tokens = out
+        self._add_transfer_delta(snap)
+        if self.overlap:
+            # keep the timeline live on the direct call path too, so
+            # makespan_seconds stays well-defined for overlap engines
+            self.timeline.advance(fetch_t, dt)
+            self.stats.timeline_seconds = self.timeline.makespan
+        self.stats.compute_seconds += dt
+        self.stats.latencies.append(dt)
+        self.stats.requests += len(prompts)
+        self.stats.batches += 1
+        return out, dt
+
+    # -- scheduler-driven serving -------------------------------------------
+    def submit(self, model: str, prompts: np.ndarray, steps: int = 8) -> None:
+        pages = self.server.store.model_pages(model)
+        router = getattr(self.server, "router", None)
+        shard = router.route(pages, record=False).shard \
+            if router is not None else None
+        self.scheduler.submit(model, (prompts, steps), pages=pages,
+                              pages_gen=self.server.store.pack_generation,
+                              shard=shard)
+
+    def run(self, max_batches: Optional[int] = None) -> ServeStats:
+        tr = get_tracer()
+        n = 0
+        while self.scheduler.pending():
+            batch = self.scheduler.next_batch(
+                self.server.pool.resident_pages())
+            if batch is None:
+                break
+            if tr.enabled:
+                tr.event("schedule", kind="policy",
+                         policy=self.scheduler.name, model=batch.model)
+            prompts, steps = batch.payload
+            snap = self._transfer_snap()
+            fetch_t = self._load_model(batch.model, grouped=self.overlap)
+            if self.prefetcher is not None:
+                self.prefetcher.note_demand(
+                    self.server.store.model_pages(batch.model))
+            self._prestage_next()       # next model's pages ∥ this compute
+            out, compute_t = self._compute(batch.model, prompts, steps)
+            self.last_tokens = out
+            self._add_transfer_delta(snap)
+            if self.overlap:
+                issue, done = self.timeline.advance(fetch_t, compute_t)
+                self.stats.latencies.append(done - issue)
+                self.stats.timeline_seconds = self.timeline.makespan
+            else:
+                self.stats.latencies.append(fetch_t + compute_t)
+            self.stats.fetch_latencies.append(fetch_t)
+            self.stats.fetch_seconds += fetch_t
+            self.stats.compute_seconds += compute_t
+            self.stats.requests += len(prompts)
+            self.stats.batches += 1
             self._maybe_prefetch()
             n += 1
             if max_batches and n >= max_batches:

@@ -11,15 +11,22 @@ Tolerances: the gather is a pure copy and must be bit-equal; the
 product accumulates in IEEE fp32 in another order than the plain
 version, 1e-4 for fp32 and 6e-2 for bf16 inputs (as the reference's
 ``tests/test_kernels.py``); served logits 1e-5 against the host mode.
+Attention: rtol 1e-4 / atol 1e-5 in fp32 (the reference's flash
+tolerance), 2e-2 in bf16 (the result is rounded once to bf16).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
+from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import SyntheticTextTask
 from repro_torch.kernels import ops, ref
-from repro_torch.launch.serve import build_store
-from repro_torch.serving.engine import (EmbeddingServingEngine, StorageModel,
+from repro_torch.launch.serve import build_lm_store, build_store
+from repro_torch.models import build
+from repro_torch.models.layers import dot
+from repro_torch.serving.engine import (EmbeddingServingEngine,
+                                        LMServingEngine, StorageModel,
                                         WeightServer)
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +124,93 @@ def test_cuda_serving_matches_host(cuda_device):
         logits[km] = out
     for a, b in zip(logits["host"], logits["cuda"]):
         np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+FLASH_CASES = [
+    (2, 64, 64, 4, 2, 16, True, 0, 0.0),
+    (1, 32, 48, 4, 4, 8, True, 16, 30.0),     # window + softcap
+    (2, 16, 64, 2, 1, 16, False, 0, 0.0),     # cross attention
+    (1, 48, 48, 8, 2, 32, True, 0, 50.0),     # GQA + softcap
+    (2, 200, 200, 8, 8, 128, True, 0, 0.0),   # ragged tiles, hd 128
+    (1, 130, 70, 4, 2, 64, True, 16, 0.0),    # rows with no visible key
+    (1, 70, 130, 2, 2, 256, False, 24, 0.0),  # hd 256, non-causal window
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,cap", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda_device, dtype, B, Sq, Skv, H, K,
+                                       hd, causal, window, cap):
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, dtype)
+        for shape in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
+    n0 = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cap)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=cap)
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (2e-2, 2e-2)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+def test_bf16_dot_accumulates_in_fp32(cuda_device):
+    """models.layers.dot on bf16 operands writes fp32, equal to the
+    product of the widened operands up to summation order."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    a = torch.randn(3, 5, 256, device=cuda_device, generator=g).bfloat16()
+    b = torch.randn(256, 96, device=cuda_device, generator=g).bfloat16()
+    got = dot(a, b)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, a.float() @ b.float(), rtol=1e-5,
+                               atol=1e-4)
+
+
+def _lm_setup():
+    cfg = reduced(get_config("deepseek-7b"))
+    store, names, lm = build_lm_store(cfg, 2, seed=0)
+    apis = {m: build(cfg) for m in names}
+    plain = {m: build(cfg, attention="plain") for m in names}
+    templates = {m: {"rebuild": lm.rebuild} for m in names}
+    return store, names, apis, plain, templates
+
+
+def test_lm_engine_cuda_matches_torch_mode(cuda_device):
+    """The LM engine in cuda mode (slab on the card, flash_attention
+    kernel) serves the greedy tokens of the torch mode on the card (plain
+    attention) from one store; prefill goes through the kernel."""
+    store, names, apis, plain, templates = _lm_setup()
+    prompts = np.random.default_rng(4).integers(
+        1, 256, size=(2, 40)).astype(np.int32)
+    out = {}
+    for mode, a in (("cuda", apis), ("torch", plain)):
+        server = WeightServer(store, store.num_pages(),
+                              storage=StorageModel("dram"), kernel_mode=mode,
+                              device=cuda_device)
+        engine = LMServingEngine(server, a, templates)
+        n0 = ops.LAUNCHES["flash_attention"]
+        toks = [engine.generate(m, prompts, steps=5)[0] for m in names]
+        launches = ops.LAUNCHES["flash_attention"] - n0
+        assert engine.stats.device_batches == 2
+        assert engine.stats.dense_fallbacks == 0
+        assert launches == (4 if mode == "cuda" else 0)
+        out[mode] = toks
+    for a, b in zip(out["cuda"], out["torch"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_lm_engine_cuda_mode_raises_without_room(cuda_device):
+    """A slab too small for a variant's page set raises in cuda mode
+    instead of materializing on the host."""
+    store, names, apis, _, templates = _lm_setup()
+    server = WeightServer(store, 2, storage=StorageModel("dram"),
+                          kernel_mode="cuda")
+    engine = LMServingEngine(server, apis, templates)
+    with pytest.raises((RuntimeError, ValueError)):
+        engine.generate(names[0], np.ones((1, 8), np.int32), steps=2)
+    assert engine.stats.dense_fallbacks == 0

@@ -1,8 +1,8 @@
 """The port stands alone: it imports neither jax nor the JAX package, and
 its copies of the JAX package's framework-free modules cannot drift.
 
-The copies (obs, storage, core, the scheduler and prefetcher) must equal
-their originals once ``repro.``/``repro/`` is renamed to
+The copies (obs, storage, core, configs, the scheduler and prefetcher)
+must equal their originals once ``repro.``/``repro/`` is renamed to
 ``repro_torch.``/``repro_torch/`` in import lines and ``-m`` strings;
 ``data/pipeline.py`` is the one copy allowed to be trimmed (it drops the
 jax-only ``make_batch_from_specs``).
@@ -29,6 +29,11 @@ COPIES = [
     "core/dedup.py", "core/pagepack.py", "core/bufferpool.py",
     "core/store.py",
     "serving/scheduler.py", "serving/prefetch.py",
+    "configs/__init__.py", "configs/base.py", "configs/arctic_480b.py",
+    "configs/deepseek_7b.py", "configs/gemma2_9b.py", "configs/hymba_1_5b.py",
+    "configs/kimi_k2_1t_a32b.py", "configs/mamba2_1_3b.py",
+    "configs/phi3_vision_4_2b.py", "configs/qwen2_72b.py",
+    "configs/qwen3_14b.py", "configs/whisper_small.py",
 ]
 
 _RENAME = re.compile(r'(\bimport |\bfrom |"-m", ")repro([./])')
@@ -59,7 +64,8 @@ def test_port_and_smoke_import_no_jax_and_no_reference():
     bad = [b for f in files for b in _bad_imports(f)]
     assert bad == []
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
-            "repro_torch.db, repro_torch.convert, repro_torch.kernels; "
+            "repro_torch.db, repro_torch.convert, repro_torch.kernels, "
+            "repro_torch.models, repro_torch.configs; "
             "leaked = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(leaked); sys.exit(1 if leaked else 0)")

@@ -135,6 +135,8 @@ def test_cpu_wrappers_launch_no_kernel():
                                 _tt(np.zeros((1, 1), np.int32), "int32"))
     ops.dedup_matmul(torch.zeros(3, 4), torch.zeros(1, 4, 8),
                      _tt(np.zeros((1, 1), np.int32), "int32"))
+    ops.flash_attention(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 1, 8),
+                        torch.zeros(1, 4, 1, 8))
     assert ops.LAUNCHES == before
 
 
@@ -154,3 +156,63 @@ def test_meta_tensor_has_no_kernel():
         ops.dedup_embedding_striped(ids, torch.zeros(2, 4, 8, device="meta"),
                                     torch.zeros(1, 1, dtype=torch.int32,
                                                 device="meta"))
+    q = torch.zeros(1, 4, 2, 8, device="meta")
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+
+
+# --------------------------------------------------------- flash_attention --
+FLASH_CASES = [
+    (2, 64, 64, 4, 2, 16, True, 0, 0.0),
+    (1, 32, 48, 4, 4, 8, True, 16, 30.0),     # window + softcap
+    (2, 16, 64, 2, 1, 16, False, 0, 0.0),     # cross attention
+    (1, 48, 48, 8, 2, 32, True, 0, 50.0),     # GQA + softcap
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,cap", FLASH_CASES)
+def test_flash_attention_matches_jax(B, Sq, Skv, H, K, hd, causal, window,
+                                     cap):
+    """The port's wrapper on CPU tensors (its plain version) against the
+    reference's plain version and its Pallas kernel in interpret mode."""
+    q = RNG.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    k = RNG.standard_normal((B, Skv, K, hd)).astype(np.float32)
+    v = RNG.standard_normal((B, Skv, K, hd)).astype(np.float32)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    got = ops.flash_attention(_tt(q), _tt(k), _tt(v), **kw).numpy()
+    want = jref.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), **kw)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-5)
+    pallas = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), bq=16, bkv=16, **kw)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=1e-4, atol=1e-5)
+
+
+def test_flash_matches_model_attention():
+    """The plain version against the reference model's chunked attend."""
+    from repro.models.attention import attend
+    q = RNG.standard_normal((2, 32, 4, 16)).astype(np.float32)
+    k = RNG.standard_normal((2, 32, 2, 16)).astype(np.float32)
+    v = RNG.standard_normal((2, 32, 2, 16)).astype(np.float32)
+    got = ops.flash_attention(_tt(q), _tt(k), _tt(v), causal=True).numpy()
+    want = attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=True, chunk=8)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+def test_fully_masked_rows_give_the_mean_of_v():
+    """Rows a whole window past the last key see no key: the finite mask
+    gives p = 1 for every key, so both packages return the mean of v."""
+    B, Sq, Skv, H, hd, window = 1, 40, 16, 2, 8, 8
+    q = RNG.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    k = RNG.standard_normal((B, Skv, H, hd)).astype(np.float32)
+    v = RNG.standard_normal((B, Skv, H, hd)).astype(np.float32)
+    got = ops.flash_attention(_tt(q), _tt(k), _tt(v), causal=True,
+                              window=window).numpy()
+    want = jref.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=True, window=window)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got[:, Skv + window:],
+                               np.broadcast_to(v.mean(axis=1)[:, None],
+                                               got[:, Skv + window:].shape),
+                               rtol=1e-5, atol=1e-6)

@@ -130,8 +130,8 @@ def test_store_from_arrays_serves_the_same_logits(reference):
 
 
 def test_port_db_roundtrip_and_unported_entry_points(tmp_path):
-    """The port commits and reopens its own database; the LM engine and
-    sharded slabs say which slice brings them."""
+    """The port commits and reopens its own database; sharded slabs say
+    which slice brings them; both engines default to the card."""
     from repro_torch.data.pipeline import SyntheticTextTask
     from repro_torch.launch.serve import build_store
     task = SyntheticTextTask(vocab=256, d=32, seed=0)
@@ -144,13 +144,13 @@ def test_port_db_roundtrip_and_unported_entry_points(tmp_path):
     db.close()
     live = DedupDB.open(f"sqlite:///{tmp_path / 'port.db'}")
     assert live.models() == sorted(store.dedup.models)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        live.serve_lm({}, {})
     with pytest.raises(NotImplementedError, match="later slice"):
         live.weight_server(shards=2, kernel_mode="torch")
     if not torch.cuda.is_available():       # the default is the card
         with pytest.raises(RuntimeError):
             live.serve_embedding(heads, storage=StorageModel("dram"))
+        with pytest.raises(RuntimeError):
+            live.serve_lm({}, {}, storage=StorageModel("dram"))
     live.close()
 
 
