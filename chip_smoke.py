@@ -10,6 +10,13 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      power limit of the card;
   2. build   — compile the hand-written kernels from ``src/repro_torch/
      kernels/csrc`` with nvcc for sm_90a, one process per source;
+  2b. index  — the word2vec store below built twice, its Alg.-1 index
+     signed on the card (``index_mode="cuda"``, the ``lsh_signature``
+     kernel) and on the host (the reference's numpy routine): equal
+     block maps, distinct blocks, pages and committed page hashes;
+     then reopened live and one variant updated (Sec. 7.6, Approach 2:
+     ``rebuild_index`` + ``update_model``) in both modes: equal block
+     maps;
   3. kernels — at the main path's shapes, hold each kernel against its
      plain PyTorch version (``dedup_embedding`` bit-exact,
      ``dedup_matmul`` within 1e-4 in fp32 and 6e-2 in bf16) and time
@@ -25,9 +32,12 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      then the serving pass once more under torch.profiler: device-busy
      share and device time by kernel;
   6. LM      — deepseek-7b at full width (d_model 4096, 32 heads of 128,
-     d_ff 11008, vocab 102,400; depth cut 30 -> 2), two variants that
-     differ in layer 1's feed-forward weights, committed to SQLite as
-     per-layer 2-D tensors in 64x64 blocks and served through
+     d_ff 11008; depth cut 30 -> 2, vocabulary 102,400 -> 32,768), two
+     variants that differ in layer 1's feed-forward weights, registered
+     twice, with the index signed on the card and on the host (equal
+     block maps, distinct blocks and pages; each build's split printed),
+     the card's committed to SQLite as per-layer 2-D tensors in 64x64
+     blocks and served through
      ``DedupDB.serve_lm`` in cuda mode: 8 batches alternating the
      variants, 4 prompts of 512 tokens and 16 greedy steps each, every
      batch a model switch whose prefill runs ``flash_attention``.  The
@@ -35,9 +45,18 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      and at the reference's four test shapes (fp32); the same traffic in
      torch mode on the card (plain attention) gives last-token prefill
      logits within the stated bf16 tolerance, and one batch rerun in fp32
-     gives the same greedy tokens in both modes;
+     gives the same greedy tokens in both modes.  ``lsh_signature`` is
+     held against its plain version at one chunk of the LM store
+     ([65,536, 4096], 64 hashes, r = 0.25, the real weights), at the
+     CLI's LM store ([n, 1024], 16 hashes, r = 4) and at the reference's
+     three test shapes, and timed at the chunk; every block of lm-v0 is
+     signed by the build's routine and held against the plain version
+     on the card and, on a sample of 20,480 blocks, against the
+     reference's per-block numpy signatures.  Signatures may differ only
+     where the exact value lies within 1e-4 of a bucket edge (each line
+     prints how many hashes lie there and how many of them differ);
   7. a ``{"kernels": [...]}`` line with every ported kernel's launches
-     on its path (phases 4, 5 and 6), its times and its bound;
+     on its path (phases 2b, 4, 5 and 6), its times and its bound;
   8. last line: ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure (the script catches nothing), so any
@@ -79,6 +98,10 @@ FLASH_CASES = [(2, 64, 64, 4, 2, 16, True, 0, 0.0),
                (1, 32, 48, 4, 4, 8, True, 16, 30.0),
                (2, 16, 64, 2, 1, 16, False, 0, 0.0),
                (1, 48, 48, 8, 2, 32, True, 0, 50.0)]
+# the reference's three lsh_signature shapes (n, dim, hashes, r)
+LSH_CASES = [(16, 64, 16, 2.0), (33, 100, 24, 4.0), (128, 512, 128, 1.0)]
+# blocks of lm-v0 held against the reference's per-block numpy signatures
+LSH_SAMPLE = 20480
 
 
 def log(msg: str) -> None:
@@ -146,12 +169,94 @@ def bound_ms(nbytes: float, flops: float, flop_per_s=FP32_FLOP_PER_S):
 
 
 # ----------------------------------------------------------------- stores --
-def word2vec_store():
+def word2vec_store(index_mode):
     from repro_torch.data.pipeline import SyntheticTextTask
     from repro_torch.launch.serve import build_store
     task = SyntheticTextTask(vocab=VOCAB, d=D, seed=SEED)
-    store, heads = build_store(task, VARIANTS)
+    store, heads = build_store(task, VARIANTS, index_mode=index_mode)
     return task, store, heads
+
+
+def block_maps(dedup):
+    return {(m, t): e.block_map.copy() for m, r in dedup.models.items()
+            for t, e in r.tensors.items()}
+
+
+def same_maps(a, b, what):
+    import numpy as np
+    if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k])
+                                       for k in a):
+        raise AssertionError(f"{what}: the block maps of the cuda and the "
+                             f"host index build differ")
+
+
+def index_line(st):
+    return (f"blocks={st.blocks} launches={st.launches} "
+            f"sign_device={st.sign_device_seconds * 1e3:.2f}ms "
+            f"h2d={st.h2d_seconds * 1e3:.2f}ms "
+            f"sign_wall={st.sign_wall_seconds:.3f}s "
+            f"build={st.build_seconds:.3f}s")
+
+
+def index_phase(torch, ops, tmpdir):
+    """Phase 2b.  The word2vec store built with its index signed on the
+    card and on the host, both committed; the card's reopened and one
+    variant updated in both modes.  Returns (task, the cuda-built store,
+    heads, its database URL, lsh_signature launches in the build and
+    update windows)."""
+    import numpy as np
+    from repro_torch.db import DedupDB
+    from repro_torch.storage import open_backend
+    # the build window: the counts go to 0 right before, read right after
+    ops.reset_launches()
+    task, store, heads = word2vec_store("cuda")
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["lsh_signature"]
+    _, host, _ = word2vec_store("host")
+    urls = {m: f"sqlite:///{Path(tmpdir) / f'models-{m}.db'}"
+            for m in ("cuda", "host")}
+    pages = {m: DedupDB(st, open_backend(urls[m])).commit()["pages"]
+             for m, st in (("cuda", store), ("host", host))}
+    same_maps(block_maps(store.dedup), block_maps(host.dedup),
+              "word2vec build")
+    dd, hd = store.dedup, host.dedup
+    if (len(dd.distinct), dd.num_distinct, store.num_pages()) != \
+            (len(hd.distinct), hd.num_distinct, host.num_pages()) \
+            or pages["cuda"] != pages["host"]:
+        raise AssertionError("word2vec build: the cuda and host stores "
+                             "differ in distinct blocks, pages or "
+                             "committed page hashes")
+    log(f"[index] word2vec build cuda: {index_line(dd.index_stats)} "
+        f"lsh_launches={launches}")
+    log(f"[index] word2vec build host: {index_line(hd.index_stats)}")
+    log(f"[index] word2vec cuda == host: block maps, distinct="
+        f"{dd.num_distinct} of {len(dd.distinct)}, pages="
+        f"{store.num_pages()}, {len(pages['cuda'])} committed page hashes")
+
+    # Sec. 7.6 update of a reopened store: a further fine-tune of v1
+    new = task.variant_embedding(1)
+    rng = np.random.default_rng(SEED + 3)
+    rows = rng.choice(VOCAB, VOCAB // 12, replace=False)
+    new[rows] += (rng.standard_normal((len(rows), D)) * 0.02).astype(
+        np.float32)
+    maps, stats = {}, {}
+    for mode in ("cuda", "host"):
+        db = DedupDB.open(urls["cuda"], index_mode=mode)
+        ops.reset_launches()
+        res = db.update("word2vec-v1", {"embedding": new})
+        torch.cuda.synchronize()
+        if mode == "cuda":
+            launches += ops.LAUNCHES["lsh_signature"]
+        maps[mode] = block_maps(db.store.dedup)
+        stats[mode] = (index_line(db.store.dedup.index_stats),
+                       res.deduped_blocks, res.total_blocks)
+        db.close()
+    same_maps(maps["cuda"], maps["host"], "word2vec reopen + update")
+    for mode, (line, deduped, total) in stats.items():
+        log(f"[index] word2vec-v1 reopen+update {mode}: {line} "
+            f"deduped={deduped} of {total}")
+    log("[index] word2vec reopen+update cuda == host: block maps")
+    return task, store, heads, urls["cuda"], launches
 
 
 def traffic(task):
@@ -342,15 +447,18 @@ def lm_store(cfg, url):
     weights drawn again (a fine-tuned layer).  Per-layer 2-D tensors,
     64x64 blocks, 8 a page, a narrow LSH bucket (r = 0.25: at the init
     scale, r = 4 puts nearly every block in one bucket and the index
-    query grows quadratically), committed to SQLite.  Returns the
-    carried tensors served in bf16 and in fp32, and a record of the
-    build."""
+    query grows quadratically), committed to SQLite.  The store is built
+    twice, its index signed on the card and on the host: the two must be
+    equal, and the card's is committed.  Returns the carried tensors
+    served in bf16 and in fp32, a record of the build and the card
+    build's LSH."""
     import math
     import numpy as np
     from repro_torch.convert import lm_tensors
-    from repro_torch.core import (DedupConfig, LSHConfig, ModelStore,
-                                  StoreConfig)
+    from repro_torch.core import DedupConfig, LSHConfig, StoreConfig
+    from repro_torch.core.device_index import DeviceModelStore
     from repro_torch.db import DedupDB
+    from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_params
     from repro_torch.storage import open_backend
     t0 = time.perf_counter()
@@ -368,15 +476,32 @@ def lm_store(cfg, url):
         x *= np.float32(std)
         tuned[key] = x
     t_init = time.perf_counter() - t0
-    store = ModelStore(StoreConfig(
+    store_cfg = StoreConfig(
         dedup=DedupConfig(block_shape=(64, 64), lsh=LSHConfig(r=0.25),
                           validate=False),
-        blocks_per_page=8))
-    t0 = time.perf_counter()
-    store.register("lm-v0", lm.tensors)
-    store.register("lm-v1", tuned)
-    pages = store.num_pages()
-    t_build = time.perf_counter() - t0
+        blocks_per_page=8)
+
+    def build(index_mode):
+        """(store, register seconds, packing seconds)"""
+        st = DeviceModelStore(store_cfg, index_mode=index_mode)
+        t0 = time.perf_counter()
+        st.register("lm-v0", lm.tensors)
+        st.register("lm-v1", tuned)
+        t1 = time.perf_counter()
+        st.num_pages()                         # packs
+        return st, t1 - t0, time.perf_counter() - t1
+
+    # the build window of lsh_signature
+    ops.reset_launches()
+    store, t_reg, t_pack = build("cuda")
+    lsh_launches = ops.LAUNCHES["lsh_signature"]
+    host, h_reg, h_pack = build("host")
+    same_maps(block_maps(store.dedup), block_maps(host.dedup), "LM build")
+    if store.dedup.num_distinct != host.dedup.num_distinct \
+            or store.packing.pages != host.packing.pages:
+        raise AssertionError("LM build: the cuda and host stores differ in "
+                             "distinct blocks or pages")
+    pages, t_build = store.num_pages(), t_reg + t_pack
     t0 = time.perf_counter()
     DedupDB(store, open_backend(url)).commit()
     t_commit = time.perf_counter() - t0
@@ -385,13 +510,28 @@ def lm_store(cfg, url):
                dedup_mib=store.storage_bytes() / 2 ** 20,
                variant_pages=[len(store.model_pages(m))
                               for m in ("lm-v0", "lm-v1")],
-               blocks=sum(a.size for a in lm.tensors.values()) // 4096)
+               blocks=sum(a.size for a in lm.tensors.values()) // 4096,
+               lsh_launches=lsh_launches)
     log(f"[lm-store] {LM_ARCH} depth={LM_DEPTH} d_model={cfg.d_model} "
         f"vocab={cfg.vocab} blocks_a_variant={rec['blocks']} "
         f"pages={pages} variant_pages={rec['variant_pages']} "
         f"dense={rec['dense_mib']:.0f}MiB dedup={rec['dedup_mib']:.0f}MiB "
         f"init={t_init:.1f}s build={t_build:.1f}s commit={t_commit:.1f}s")
-    return lm, lm32, rec
+    # where the build's time goes: signatures, signature + index query
+    # (index_query_seconds), the rest of Alg. 1, then page packing
+    for mode, st, reg, pack in (("cuda", store, t_reg, t_pack),
+                                ("host", host, h_reg, h_pack)):
+        ix = st.dedup.index_stats
+        query_s = sum(r.index_query_seconds
+                      for r in st.dedup.models.values())
+        log(f"[lm-index] {mode}: {index_line(ix)} register={reg:.1f}s "
+            f"sign_share={ix.sign_wall_seconds / reg:.3f} "
+            f"signature+query={query_s:.1f}s "
+            f"rest={reg - query_s:.1f}s pack={pack:.1f}s")
+    log(f"[lm-index] cuda == host: block maps, distinct="
+        f"{store.dedup.num_distinct}, pages={pages}; lsh_launches="
+        f"{lsh_launches}")
+    return lm, lm32, rec, store.dedup.index.lsh
 
 
 def lm_traffic(cfg):
@@ -492,6 +632,133 @@ def flash_phase(torch, ops, ref, cfg):
     return rec
 
 
+def lsh_check(torch, ops, ref, x, proj, bias, r, what):
+    """lsh_signature against its plain version on the card: equal except
+    where the exact value lies within 1e-4 of a bucket edge.  Returns
+    (max |difference| in buckets, hashes at an edge, hashes that
+    differ)."""
+    got = ops.lsh_signature(x, proj, bias, r)
+    want = ref.lsh_signature(x, proj, bias, r)
+    edges = ref.lsh_edges(x, proj, bias, r)
+    torch.cuda.synchronize()
+    diff = got != want
+    off = int((diff & ~edges).sum())
+    if off:
+        raise AssertionError(f"lsh_signature {what}: {off} hashes differ "
+                             f"from the plain version off the bucket edges")
+    return (float((got - want).abs().max()), int(edges.sum()),
+            int(diff.sum()))
+
+
+def cli_lm_blocks():
+    """The CLI's LM store: the reduced deepseek-7b's tensors in 32x32
+    blocks, and its LSH (16 hashes, r = 4)."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import lm_tensors
+    from repro_torch.core import LSHConfig
+    from repro_torch.core.blocks import block_tensor
+    from repro_torch.core.lsh import L2LSH
+    from repro_torch.models.transformer import init_params
+    cfg = reduced(get_config(LM_ARCH))
+    lm = lm_tensors(init_params(cfg, SEED), dtype=cfg.dtype)
+    blocks = np.concatenate([block_tensor(np.asarray(t), (32, 32))[0]
+                             .reshape(-1, 1024) for t in lm.tensors.values()])
+    lsh = L2LSH(1024, LSHConfig(num_bands=8, rows_per_band=2, r=4.0,
+                                collision_threshold=6))
+    return blocks.astype(np.float32), lsh
+
+
+def lsh_phase(torch, ops, ref, chunk, lsh):
+    """lsh_signature against its plain version at one chunk of the LM
+    store's blocks (timed), at the CLI's LM store and at the reference's
+    three test shapes."""
+    import numpy as np
+    dev = torch.device("cuda")
+    proj, bias = (torch.from_numpy(a).to(dev) for a in (lsh.proj, lsh.bias))
+    r = lsh.cfg.r
+    x = torch.from_numpy(chunk).to(dev)
+    n, dim = x.shape
+    nh = proj.shape[1]
+    n0 = ops.LAUNCHES["lsh_signature"]
+    err, edges, diff = lsh_check(torch, ops, ref, x, proj, bias, r, "chunk")
+    checks = [f"chunk[{n},{dim}]x{nh}: edge_hashes={edges} differ={diff}"]
+    cblocks, clsh = cli_lm_blocks()
+    cases = [(f"cli[{len(cblocks)},1024]x16", cblocks, clsh.proj, clsh.bias,
+              clsh.cfg.r)]
+    rng = np.random.default_rng(SEED)
+    for cn, cdim, cnh, cr in LSH_CASES:
+        cases.append((f"ref[{cn},{cdim}]x{cnh}",
+                      rng.standard_normal((cn, cdim)).astype(np.float32),
+                      rng.standard_normal((cdim, cnh)).astype(np.float32),
+                      (rng.random(cnh) * cr).astype(np.float32), cr))
+    for what, cx, cp, cb, cr in cases:
+        a, b, c = (torch.from_numpy(v).to(dev) for v in (cx, cp, cb))
+        e, ed, df = lsh_check(torch, ops, ref, a, b, c, cr, what)
+        err = max(err, e)
+        checks.append(f"{what}: edge_hashes={ed} differ={df}")
+    kernel = lambda: ops.lsh_signature(x, proj, bias, r)      # noqa: E731
+    plain = lambda: ref.lsh_signature(x, proj, bias, r)       # noqa: E731
+    ms = {"kernel_ms": graph_ms(torch, kernel),
+          "kernel_eager_ms": eager_ms(torch, kernel, reps=50),
+          "plain_ms": graph_ms(torch, plain),
+          "plain_eager_ms": eager_ms(torch, plain, reps=50)}
+    # the library yardstick is the plain version itself: one cuBLAS
+    # sgemm (TF32 off) and the elementwise bias, divide and floor
+    ms["library_ms"] = ms["plain_ms"]
+    nbytes = (x.numel() + proj.numel() + bias.numel() + n * nh) * 4
+    flops = 2 * n * dim * nh
+    b_ms, b_by = bound_ms(nbytes, flops)
+    rec = dict(kernel="lsh_signature", max_abs_err=err,
+               tolerance="equal off the 1e-4 bucket edges", **ms,
+               bound_ms=b_ms, bytes=nbytes, flops=flops, bound_by=b_by,
+               launches=ops.LAUNCHES["lsh_signature"] - n0,
+               shapes=f"blocks[{n},{dim}] proj[{dim},{nh}] r={r}; the CLI's "
+                      f"LM store; the three reference shapes",
+               checks=checks)
+    log(json.dumps({"phase": "kernel-check", **rec}))
+    return rec
+
+
+def lm_signature_check(torch, ref, lsh, blocks):
+    """Every block of lm-v0 signed by the build's routine (the kernel,
+    chunked through pinned memory) against the plain version on the
+    card, and a sample against the reference's per-block numpy
+    signatures (the host build's routine), under the edge criterion."""
+    import numpy as np
+    from repro_torch.core.device_index import CHUNK_BLOCKS
+    from repro_torch.core.lsh import L2LSH
+    t0 = time.perf_counter()
+    sig = lsh.signatures(blocks)
+    dev = torch.device("cuda")
+    proj, bias = (torch.from_numpy(a).to(dev) for a in (lsh.proj, lsh.bias))
+    edges = np.empty(sig.shape, dtype=bool)
+    diff_plain = 0
+    for s in range(0, len(blocks), CHUNK_BLOCKS):
+        x = torch.from_numpy(blocks[s:s + CHUNK_BLOCKS]).to(dev)
+        plain = ref.lsh_signature(x, proj, bias, lsh.cfg.r).cpu().numpy()
+        e = ref.lsh_edges(x, proj, bias, lsh.cfg.r).cpu().numpy()
+        edges[s:s + len(e)] = e
+        d = sig[s:s + len(e)] != plain
+        if (d & ~e).any():
+            raise AssertionError(f"lm-v0 signatures differ from the plain "
+                                 f"version off the edges in "
+                                 f"{int((d & ~e).sum())} hashes")
+        diff_plain += int(d.sum())
+    idx = np.sort(np.random.default_rng(SEED).choice(
+        len(blocks), LSH_SAMPLE, replace=False))
+    host = np.stack([L2LSH.signatures(lsh, blocks[i][None])[0] for i in idx])
+    d = sig[idx] != host
+    if (d & ~edges[idx]).any():
+        raise AssertionError(f"lm-v0 signatures differ from numpy's off the "
+                             f"edges in {int((d & ~edges[idx]).sum())} hashes")
+    log(f"[lm-sig] lm-v0 blocks={len(blocks)} hashes={sig.size} "
+        f"edge_hashes={int(edges.sum())} differ_plain={diff_plain} "
+        f"sample={LSH_SAMPLE} sample_edge_hashes={int(edges[idx].sum())} "
+        f"differ_numpy_per_block={int(d.sum())} (tol: equal off the 1e-4 "
+        f"edges) seconds={time.perf_counter() - t0:.1f}")
+
+
 def time_lm_steps(torch, engine, api, prompts):
     """Device milliseconds of one prefill and of one decode step on the
     engine's resident model (CUDA events, after a warm-up)."""
@@ -550,13 +817,21 @@ def profile_lm_steps(torch, engine, api, prompts) -> None:
 
 
 def lm_phase(torch, ops, ref, tmpdir):
-    """The LM path: returns (flash record, flash launches on the path)."""
+    """The LM path: returns (kernel records, launches on the path) of
+    flash_attention and lsh_signature."""
     import numpy as np
+    from repro_torch.core.blocks import block_tensor
+    from repro_torch.core.device_index import CHUNK_BLOCKS
     from repro_torch.models import build
     cfg = lm_config()
     flash = flash_phase(torch, ops, ref, cfg)
     url = f"sqlite:///{Path(tmpdir) / 'lm.db'}"
-    lm, lm32, store_rec = lm_store(cfg, url)
+    lm, lm32, store_rec, lsh = lm_store(cfg, url)
+    blocks = np.concatenate([block_tensor(np.asarray(t), (64, 64))[0]
+                             .reshape(-1, 4096) for t in lm.tensors.values()])
+    lsh_rec = lsh_phase(torch, ops, ref, blocks[:CHUNK_BLOCKS], lsh)
+    lm_signature_check(torch, ref, lsh, blocks)
+    del blocks
     traffic = lm_traffic(cfg)
     capacity = max(store_rec["variant_pages"])  # the larger variant's set
     kernel_apis = {m: build(cfg) for m in ("lm-v0", "lm-v1")}
@@ -646,7 +921,9 @@ def lm_phase(torch, ops, ref, tmpdir):
                              "torch mode")
     db.close()
     t_db.close()
-    return flash, launches["flash_attention"], store_rec
+    return ({"flash_attention": flash, "lsh_signature": lsh_rec},
+            {"flash_attention": launches["flash_attention"],
+             "lsh_signature": store_rec["lsh_launches"]})
 
 
 def main() -> int:
@@ -680,8 +957,13 @@ def main() -> int:
     log(f"[build] kernels={sorted(_build.KERNELS)} seconds={build_s:.2f} "
         f"flags={' '.join(_build.NVCC_FLAGS)}")
 
+    # ------------------------------------------- 2b. index build (card) --
     t0 = time.perf_counter()
-    task, store, heads = word2vec_store()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    task, store, heads, url, index_launches = index_phase(torch, ops,
+                                                          tmp.name)
+    log(f"[index] seconds={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
     fstore = ffnn_store()
     batches = traffic(task)
     import numpy as np
@@ -710,12 +992,6 @@ def main() -> int:
                         fstore.num_pages() * 8)
 
     # ------------------------------------------- 4. serving (main path) --
-    from repro_torch.db import DedupDB
-    from repro_torch.storage import open_backend
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    url = f"sqlite:///{Path(tmp.name) / 'models.db'}"
-    DedupDB(store, open_backend(url)).commit()
-
     # each path's launches are counted in a window of its own: the
     # counts go to 0 right before the path runs and are read right after
     ops.reset_launches()
@@ -803,8 +1079,12 @@ def main() -> int:
 
     # ----------------------------------------------------------- 6. LM --
     t0 = time.perf_counter()
-    recs["flash_attention"], launches["flash_attention"], _ = lm_phase(
-        torch, ops, ref, tmp.name)
+    lm_recs, lm_launches = lm_phase(torch, ops, ref, tmp.name)
+    recs.update(lm_recs)
+    launches.update(lm_launches)
+    # the index build's windows: the word2vec build and update, the LM
+    # store's two variants
+    launches["lsh_signature"] += index_launches
     log(f"[lm] seconds={time.perf_counter() - t0:.1f}")
     tmp.cleanup()
 
@@ -817,6 +1097,8 @@ def main() -> int:
                          f"{csrc}/dedup_matmul.cu"),
         "flash_attention": ("src/repro/kernels/flash_attention.py:94",
                             f"{csrc}/flash_attention.cu"),
+        "lsh_signature": ("src/repro/kernels/lsh_signature.py:50",
+                          f"{csrc}/lsh_signature.cu"),
     }
     kernels = []
     for name, rec in recs.items():

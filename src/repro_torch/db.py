@@ -23,6 +23,9 @@ microbenchmark calibration of the very backend serving the pages.
 By default the server computes on the GPU (``compute_backend="device"``,
 ``kernel_mode="auto"`` = the CUDA kernels); a CPU caller asks for
 ``kernel_mode="torch"``/``"host"`` or ``compute_backend="numpy"``.
+Likewise ``register``, ``update`` and the re-index of a reopened store
+sign blocks on the card (``index_mode="auto"``, the ``lsh_signature``
+kernel); a CPU caller opens with ``index_mode="torch"``/``"host"``.
 Sharded slabs are a later slice of the port.
 """
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 
 from .core.dedup import DedupResult, Evaluator
+from .core.device_index import DeviceModelStore
 from .core.store import ModelStore, StoreConfig
 from .serving.engine import (EmbeddingServingEngine, LMServingEngine,
                              StorageModel, WeightServer)
@@ -49,19 +53,26 @@ class DedupDB:
 
     # ------------------------------------------------------------- open --
     @classmethod
-    def open(cls, url, cfg: Optional[StoreConfig] = None) -> "DedupDB":
+    def open(cls, url, cfg: Optional[StoreConfig] = None,
+             index_mode: str = "auto", device=None) -> "DedupDB":
         """Open (or initialize) a dedup database at a storage URL.
 
         With a committed manifest the store comes back *live* (paged,
         nothing densified); on a fresh target an empty store is bound to
         the backend and the first :meth:`commit` creates the manifest.
-        ``cfg`` overrides the persisted store configuration."""
+        ``cfg`` overrides the persisted store configuration.  The store
+        is a :class:`DeviceModelStore`: its dedup index signs blocks in
+        ``index_mode`` on ``device`` (resolved at the first signature,
+        so opening to serve needs no card)."""
         from .storage.faults import maybe_wrap
         backend = maybe_wrap(open_backend(url))   # REPRO_FAULTS chaos hook
         if backend.has_manifest():
-            store = ModelStore.open(backend, cfg)
+            store = DeviceModelStore.open(backend, cfg,
+                                          index_mode=index_mode,
+                                          device=device)
         else:
-            store = ModelStore(cfg)
+            store = DeviceModelStore(cfg, index_mode=index_mode,
+                                     device=device)
             store._backend = backend             # bind for commit()/save()
         return cls(store, backend)
 

@@ -38,6 +38,7 @@ KERNELS = {
     "flash_attention": ("flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _F, _I, _I, _P]),
+    "lsh_signature": ("lsh_signature", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -20,7 +20,8 @@ import torch
 from . import _build, ref
 
 __all__ = ["LAUNCHES", "reset_launches", "dedup_matmul", "dedup_embedding",
-           "dedup_embedding_striped", "flash_attention", "ref"]
+           "dedup_embedding_striped", "flash_attention", "lsh_signature",
+           "ref"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNELS}
@@ -186,4 +187,43 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                  float(softcap), scale, int(skip), _DTYPES[q.dtype],
                  _stream(q.device))
     _launched("flash_attention", err)
+    return out
+
+
+# ----------------------------------------------------------- lsh_signature --
+def lsh_signature(blocks, proj, bias, r: float):
+    """blocks [n, dim] @ proj [dim, nh] + bias [nh], divided by r and
+    floored -> int32 [n, nh]: the L2-LSH signatures of the index build.
+
+    On CUDA all three inputs are contiguous float32 on one device; the
+    kernel sums in IEEE fp32 (no TF32), adds the bias and divides by r
+    rounded to fp32, as numpy does, and masks ragged n, dim and nh
+    itself.  It may differ from the plain version only at a bucket edge
+    (:func:`ref.lsh_edges`)."""
+    if blocks.device.type == "cpu":
+        return ref.lsh_signature(blocks, proj, bias, r)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"lsh_signature: no kernel for {blocks.device}")
+    if blocks.dim() != 2 or proj.dim() != 2 or bias.dim() != 1 \
+            or proj.shape[0] != blocks.shape[1] \
+            or bias.shape[0] != proj.shape[1]:
+        raise ValueError(f"lsh_signature: blocks {tuple(blocks.shape)}, "
+                         f"proj {tuple(proj.shape)}, bias "
+                         f"{tuple(bias.shape)}")
+    for t in (blocks, proj, bias):
+        if t.dtype != torch.float32:
+            raise ValueError(f"lsh_signature: the kernel takes float32, "
+                             f"got {t.dtype}")
+    _check_cuda("lsh_signature", blocks, proj, bias)
+    n, dim = blocks.shape
+    nh = proj.shape[1]
+    out = torch.empty((n, nh), dtype=torch.int32, device=blocks.device)
+    if n == 0 or nh == 0:
+        return out
+    fn = _build.load("lsh_signature")
+    with torch.cuda.device(blocks.device):
+        err = fn(blocks.data_ptr(), proj.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(), n, dim, nh, float(r),
+                 _stream(blocks.device))
+    _launched("lsh_signature", err)
     return out

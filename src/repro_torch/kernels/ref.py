@@ -89,3 +89,26 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(F32))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+#: a hash whose exact value lies closer than this to a bucket edge may floor
+#: to either bucket under two fp32 summation orders (see :func:`lsh_edges`)
+LSH_EDGE_TOL = 1e-4
+
+
+def lsh_signature(blocks, proj, bias, r: float):
+    """blocks [n, dim] -> int32 signatures [n, num_hashes] (Sec. 4.2.2):
+    ``floor((blocks @ proj + bias) / r)`` in fp32."""
+    h = torch.floor((blocks.to(F32) @ proj.to(F32) + bias.to(F32)) / r)
+    return h.to(torch.int32)
+
+
+def lsh_edges(blocks, proj, bias, r: float, tol: float = LSH_EDGE_TOL):
+    """bool [n, num_hashes]: where ``(blocks @ proj + bias) / r``, taken in
+    fp64, lies within ``tol`` of an integer.
+
+    There two fp32 routines that sum in different orders (numpy's batched
+    and per-block products among them) may floor to neighbouring buckets;
+    everywhere else their signatures must be equal."""
+    v = (blocks.double() @ proj.double() + bias.double()) / r
+    return (v - torch.round(v)).abs() < tol

@@ -20,6 +20,12 @@ with the CUDA kernels and needs an NVIDIA GPU of capability (9, 0);
 page pool at every model switch, and prefill attention runs the
 ``flash_attention`` kernel on the card.
 
+The store's Alg.-1 index build signs blocks in ``--index-mode``: by
+default on the card (the ``lsh_signature`` kernel) with ``--backend
+device`` and on the host (the reference's numpy routine) with
+``--backend numpy``.  An ``[index]`` line reports the signature step
+beside the build.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --models 6 --batches 60
   PYTHONPATH=src python -m repro_torch.launch.serve --backend numpy
@@ -34,8 +40,10 @@ import argparse
 import numpy as np
 
 from ..core import DedupConfig, LSHConfig, ModelStore, StoreConfig
+from ..core.device_index import DeviceModelStore
 from ..core.lsh import estimate_r
 from ..data.pipeline import SyntheticTextTask
+from ..serving.device_pool import KERNEL_MODES
 from ..serving.engine import (EmbeddingServingEngine, LMServingEngine,
                               ServeStats, StorageModel, WeightServer)
 from ..serving.prefetch import Prefetcher
@@ -44,7 +52,9 @@ from ..serving.scheduler import SCHEDULERS
 
 def build_store(task: SyntheticTextTask, num_models: int,
                 block_shape=(64, 64), blocks_per_page: int = 8,
-                pack_strategy: str = "two_stage"):
+                pack_strategy: str = "two_stage", index_mode: str = "auto"):
+    """The reference CLI's word2vec store, its index signed in
+    ``index_mode`` (default: on the card).  Returns (store, heads)."""
     from ..core.blocks import block_tensor
     base_blocks, _ = block_tensor(task.base_embed, block_shape)
     r = estimate_r(base_blocks, quantile=0.5)
@@ -56,7 +66,7 @@ def build_store(task: SyntheticTextTask, num_models: int,
             validate=False),
         blocks_per_page=blocks_per_page,
         pack_strategy=pack_strategy)
-    store = ModelStore(cfg)
+    store = DeviceModelStore(cfg, index_mode=index_mode)
     heads = {}
     for v in range(num_models):
         name = f"word2vec-v{v}"
@@ -66,20 +76,22 @@ def build_store(task: SyntheticTextTask, num_models: int,
     return store, heads
 
 
-def build_lm_store(cfg, num_models: int, seed: int = 0):
+def build_lm_store(cfg, num_models: int, seed: int = 0,
+                   index_mode: str = "auto"):
     """``num_models`` variants of an LM: numpy weights from ``seed``
     (``models.transformer.init_params``), variant v shifted by 1e-5 * v,
     registered into a store of 32x32 blocks, 8 a page, as the reference
-    CLI builds its LM store.  Returns (store, names, lm_tensors)."""
+    CLI builds its LM store, its index signed in ``index_mode``.
+    Returns (store, names, lm_tensors)."""
     from ..convert import lm_tensors
     from ..models.transformer import init_params
     lm = lm_tensors(init_params(cfg, seed), dtype=cfg.dtype)
-    store = ModelStore(StoreConfig(
+    store = DeviceModelStore(StoreConfig(
         dedup=DedupConfig(block_shape=(32, 32),
                           lsh=LSHConfig(num_bands=8, rows_per_band=2,
                                         r=4.0, collision_threshold=6),
                           validate=False),
-        blocks_per_page=8))
+        blocks_per_page=8), index_mode=index_mode)
     names = []
     for v in range(num_models):
         name = f"lm-v{v}"
@@ -87,6 +99,16 @@ def build_lm_store(cfg, num_models: int, seed: int = 0):
         delta = 0.0 if v == 0 else 1e-5 * v
         store.register(name, {k: t + delta for k, t in lm.tensors.items()})
     return store, names, lm
+
+
+def _print_index(store: DeviceModelStore) -> None:
+    st = store.dedup.index_stats
+    print(f"[index] mode={store.dedup.index.lsh.resolved_mode()} "
+          f"blocks={st.blocks} launches={st.launches} "
+          f"sign_device={st.sign_device_seconds*1e3:.2f}ms "
+          f"h2d={st.h2d_seconds*1e3:.2f}ms "
+          f"sign_wall={st.sign_wall_seconds:.3f}s "
+          f"build={st.build_seconds:.3f}s")
 
 
 def _print_stats(args, stats: ServeStats, server: WeightServer,
@@ -160,7 +182,7 @@ def _open_db(args, store: ModelStore):
                                         FaultSpec.parse(args.faults))
         print(f"[faults] injecting: {backend.spec}")
     store.save(backend)
-    db = DedupDB.open(backend)
+    db = DedupDB.open(backend, index_mode=args.index_mode)
     storage = db.storage_model()
     print(f"[store-url] {args.store_url} models={len(db.models())} "
           f"pages={db.store.num_pages()} "
@@ -171,12 +193,14 @@ def _open_db(args, store: ModelStore):
 
 def serve_embedding(args) -> tuple:
     task = SyntheticTextTask(vocab=args.vocab, seed=args.seed)
-    store, heads = build_store(task, args.models)
+    store, heads = build_store(task, args.models,
+                               index_mode=args.index_mode)
     dedup_bytes = store.storage_bytes()
     dense_bytes = store.dense_bytes()
     print(f"[store] models={args.models} pages={store.num_pages()} "
           f"dense={dense_bytes/2**20:.1f}MiB dedup={dedup_bytes/2**20:.1f}MiB "
           f"reduction={dense_bytes/max(1, dedup_bytes):.2f}x")
+    _print_index(store)
 
     if args.store_url:
         db, _ = _open_db(args, store)
@@ -216,9 +240,11 @@ def serve_lm(args) -> tuple:
 
     cfg = reduced(get_config("deepseek-7b"))
     num_models = max(2, min(args.models, 3))
-    store, names, lm = build_lm_store(cfg, num_models, seed=args.seed)
+    store, names, lm = build_lm_store(cfg, num_models, seed=args.seed,
+                                      index_mode=args.index_mode)
     print(f"[store] lm models={num_models} pages={store.num_pages()} "
           f"reduction={store.dense_bytes()/max(1, store.storage_bytes()):.2f}x")
+    _print_index(store)
 
     api = build(cfg)
     apis = {name: api for name in names}
@@ -294,6 +320,14 @@ def main(argv=None):
                          "the CUDA dedup kernels (DESIGN.md §3; needs a GPU "
                          "of capability (9, 0)); numpy: host "
                          "materialization (policy simulator)")
+    ap.add_argument("--index-mode", default=None,
+                    choices=KERNEL_MODES,
+                    help="where the store build signs blocks (Alg. 1): "
+                         "cuda = the lsh_signature kernel (auto = cuda, "
+                         "needs a GPU of capability (9, 0)); torch = its "
+                         "plain PyTorch version; host = the reference's "
+                         "numpy routine.  Default: auto with --backend "
+                         "device, host with --backend numpy")
     ap.add_argument("--transfer", default="grouped",
                     choices=("per_page", "grouped"),
                     help="host->device page movement: per_page (one copy "
@@ -309,6 +343,8 @@ def main(argv=None):
     ap.add_argument("--vocab", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.index_mode is None:
+        args.index_mode = "auto" if args.backend == "device" else "host"
     if args.prefetch:
         args.overlap = True
     if args.faults and not args.store_url:

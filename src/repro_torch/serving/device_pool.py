@@ -56,23 +56,25 @@ KERNEL_MODES = ("auto", "cuda", "torch", "host")
 CUDA_CAPABILITY = (9, 0)
 
 
-def resolve_kernel_mode(kernel_mode: str, device=None) -> str:
+def resolve_kernel_mode(kernel_mode: str, device=None,
+                        name: str = "kernel_mode") -> str:
     """``auto`` -> ``cuda`` when a CUDA device of capability (9, 0) is
-    present; raise otherwise.  Other modes pass through."""
+    present; raise otherwise.  Other modes pass through.  ``name`` is
+    the caller's parameter, for the messages."""
     if kernel_mode not in KERNEL_MODES:
-        raise ValueError(f"unknown kernel_mode {kernel_mode!r}; "
+        raise ValueError(f"unknown {name} {kernel_mode!r}; "
                          f"have {KERNEL_MODES}")
     if kernel_mode != "auto":
         return kernel_mode
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "kernel_mode='auto' means the CUDA kernels, and no CUDA device "
-            "is present; pass kernel_mode='torch' or 'host' to run on "
+            f"{name}='auto' means the CUDA kernels, and no CUDA device "
+            f"is present; pass {name}='torch' or 'host' to run on "
             "the CPU")
     cap = torch.cuda.get_device_capability(device)
     if tuple(cap) != CUDA_CAPABILITY:
         raise RuntimeError(
-            f"kernel_mode='auto' means the sm_90a kernels, and the CUDA "
+            f"{name}='auto' means the sm_90a kernels, and the CUDA "
             f"device has capability {tuple(cap)}, not {CUDA_CAPABILITY}")
     return "cuda"
 

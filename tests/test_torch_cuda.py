@@ -12,7 +12,9 @@ product accumulates in IEEE fp32 in another order than the plain
 version, 1e-4 for fp32 and 6e-2 for bf16 inputs (as the reference's
 ``tests/test_kernels.py``); served logits 1e-5 against the host mode.
 Attention: rtol 1e-4 / atol 1e-5 in fp32 (the reference's flash
-tolerance), 2e-2 in bf16 (the result is rounded once to bf16).
+tolerance), 2e-2 in bf16 (the result is rounded once to bf16).  LSH
+signatures: equal except hashes at a bucket edge (``ref.lsh_edges``);
+stores built on the card: block maps and pages equal to the host build.
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ import torch
 from repro_torch import convert
 from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import SyntheticTextTask
+from repro_torch.db import DedupDB
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.serve import build_lm_store, build_store
 from repro_torch.models import build
@@ -96,7 +99,7 @@ def test_cuda_serving_matches_host(cuda_device):
     logits, under partial residency and with the double buffer on."""
     task = SyntheticTextTask(vocab=1024, d=72, seed=0)
     store, heads = build_store(task, 3, block_shape=(32, 32),
-                               blocks_per_page=4)
+                               blocks_per_page=4, index_mode="host")
     batches = [(f"word2vec-v{b % 3}",
                 task.sample(16, variant=b % 3, seed=100 + b)[0])
                for b in range(6)]
@@ -173,7 +176,7 @@ def test_bf16_dot_accumulates_in_fp32(cuda_device):
 
 def _lm_setup():
     cfg = reduced(get_config("deepseek-7b"))
-    store, names, lm = build_lm_store(cfg, 2, seed=0)
+    store, names, lm = build_lm_store(cfg, 2, seed=0, index_mode="host")
     apis = {m: build(cfg) for m in names}
     plain = {m: build(cfg, attention="plain") for m in names}
     templates = {m: {"rebuild": lm.rebuild} for m in names}
@@ -214,3 +217,64 @@ def test_lm_engine_cuda_mode_raises_without_room(cuda_device):
     with pytest.raises((RuntimeError, ValueError)):
         engine.generate(names[0], np.ones((1, 8), np.int32), steps=2)
     assert engine.stats.dense_fallbacks == 0
+
+
+#: the reference's three shapes, the LM stores' (64x64 blocks, 64 hashes,
+#: r = 0.25; 32x32, 16 hashes, r = 4), and ragged n, dim and nh
+LSH_SHAPES = [(16, 64, 16, 2.0), (33, 100, 24, 4.0), (128, 512, 128, 1.0),
+              (256, 4096, 64, 0.25), (256, 1024, 16, 4.0),
+              (1000, 4096, 64, 0.25), (65, 1000, 70, 0.7)]
+
+
+@pytest.mark.parametrize("n,dim,nh,r", LSH_SHAPES)
+def test_lsh_signature_matches_plain(cuda_device, n, dim, nh, r):
+    """Equal to the plain version and to numpy except hashes whose exact
+    value lies within 1e-4 of a bucket edge (ref.lsh_edges): the floor
+    turns a last-bit difference of summation order into a bucket."""
+    rng = np.random.default_rng(3)
+    scale = 0.02 if dim >= 1024 else 1.0
+    blocks = (rng.standard_normal((n, dim)) * scale).astype(np.float32)
+    proj = rng.standard_normal((dim, nh)).astype(np.float32)
+    bias = (rng.random(nh) * r).astype(np.float32)
+    x, p, b = (torch.from_numpy(a).to(cuda_device)
+               for a in (blocks, proj, bias))
+    n0 = ops.LAUNCHES["lsh_signature"]
+    got = ops.lsh_signature(x, p, b, r)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["lsh_signature"] == n0 + 1
+    assert got.dtype == torch.int32 and got.shape == (n, nh)
+    edges = ref.lsh_edges(x, p, b, r).cpu().numpy()
+    got = got.cpu().numpy()
+    for want in (ref.lsh_signature(x, p, b, r).cpu().numpy(),
+                 np.floor((blocks @ proj + bias) / r).astype(np.int32)):
+        assert not ((got != want) & ~edges).any()
+
+
+def test_dedup_db_cuda_build_matches_host(cuda_device, tmp_path):
+    """DedupDB.register and a reopened store's update sign on the card
+    and give the host build's block maps and pages."""
+    task = SyntheticTextTask(vocab=2048, d=72, seed=3)
+    new = task.variant_embedding(1).copy()
+    new[:600] += np.random.default_rng(7).standard_normal(
+        (600, 72)).astype(np.float32)
+    built, updated = {}, {}
+    for mode in ("cuda", "host"):
+        store, _ = build_store(task, 4, block_shape=(32, 32),
+                               blocks_per_page=4, index_mode=mode)
+        url = f"sqlite:///{tmp_path / f'{mode}.db'}"
+        built[mode] = store.save(url)["pages"]
+        db = DedupDB.open(url, index_mode=mode)
+        n0 = ops.LAUNCHES["lsh_signature"]
+        db.update("word2vec-v1", {"embedding": new})
+        launches = ops.LAUNCHES["lsh_signature"] - n0
+        assert launches == (0 if mode == "host" else
+                            db.store.dedup.index_stats.launches)
+        assert launches >= (2 if mode == "cuda" else 0)
+        updated[mode] = ({m: r.tensors["embedding"].block_map
+                          for m, r in db.store.dedup.models.items()},
+                         db.commit()["pages"])
+        db.close()
+    assert built["cuda"] == built["host"]
+    assert updated["cuda"][1] == updated["host"][1]
+    for m, bm in updated["host"][0].items():
+        np.testing.assert_array_equal(updated["cuda"][0][m], bm)

@@ -36,7 +36,8 @@ def _scenarios(vocab=512, d=32, num_models=3, block=(32, 32), l=4, seed=0):
     """(task, port store, heads, reference store, reference heads)."""
     task = SyntheticTextTask(vocab=vocab, d=d, seed=seed)
     store, heads = build_store(task, num_models=num_models,
-                               block_shape=block, blocks_per_page=l)
+                               block_shape=block, blocks_per_page=l,
+                               index_mode="host")
     jtask = JTask(vocab=vocab, d=d, seed=seed)
     jstore, jheads = jbuild_store(jtask, num_models=num_models,
                                   block_shape=block, blocks_per_page=l)

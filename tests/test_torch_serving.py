@@ -136,8 +136,8 @@ def test_port_db_roundtrip_and_unported_entry_points(tmp_path):
     from repro_torch.launch.serve import build_store
     task = SyntheticTextTask(vocab=256, d=32, seed=0)
     store, heads = build_store(task, 2, block_shape=(32, 32),
-                               blocks_per_page=4)
-    db = DedupDB.open(f"sqlite:///{tmp_path / 'port.db'}")
+                               blocks_per_page=4, index_mode="host")
+    db = DedupDB.open(f"sqlite:///{tmp_path / 'port.db'}", index_mode="host")
     for m in sorted(store.dedup.models):
         db.register(m, {"embedding": store.materialize(m, "embedding")})
     db.commit()
@@ -201,7 +201,7 @@ def test_cli_device_path_on_cpu_from_sqlite(tmp_path):
         assert "[serve]" not in out.stdout
         assert "no CUDA device" in out.stderr
     task = SyntheticTextTask(vocab=512, seed=0)
-    store, heads = build_store(task, 2)
+    store, heads = build_store(task, 2, index_mode="host")
     url = f"sqlite:///{tmp_path / 'cli.db'}"
     DedupDB(store, open_backend(url)).commit()
     traffic = [(f"word2vec-v{b % 2}",
