@@ -19,8 +19,11 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      maps;
   3. kernels — at the main path's shapes, hold each kernel against its
      plain PyTorch version (``dedup_embedding`` bit-exact,
-     ``dedup_matmul`` within 1e-4 in fp32 and 6e-2 in bf16) and time
-     kernel, plain version and one PyTorch library call with CUDA events;
+     ``dedup_matmul`` within 1e-4 in fp32 and 6e-2 in bf16, the same
+     bits from two calls) and time kernel, plain version and one PyTorch
+     library call with CUDA events; each line names the body that ran
+     (``variant``: wgmma or fma) and ``dedup_matmul``'s K splits; a
+     ``[matmul-splits]`` line times it with the split forced to 1-32;
   4. serving — the main path: the word2vec scenario at d = 300 (vocab
      32,768, 4 variants, 64x64 blocks, 8 blocks a page) committed to
      SQLite through ``DedupDB``, reopened live and served through the
@@ -40,9 +43,12 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      blocks and served through
      ``DedupDB.serve_lm`` in cuda mode: 8 batches alternating the
      variants, 4 prompts of 512 tokens and 16 greedy steps each, every
-     batch a model switch whose prefill runs ``flash_attention``.  The
-     kernel is held against its plain version at the path's shape (bf16)
-     and at the reference's four test shapes (fp32); the same traffic in
+     batch a model switch whose prefill runs ``flash_attention`` (its
+     tensor-core body, asserted).  The kernel is held against its plain
+     version at the path's shape (bf16), at head dims 64 and 256 with a
+     window and the softcap (bf16) and at the reference's four test
+     shapes (fp32), and timed beside SDPA at four more bf16 shapes
+     (``[flash-shapes]``); the same traffic in
      torch mode on the card (plain attention) gives last-token prefill
      logits within the stated bf16 tolerance, and one batch rerun in fp32
      gives the same greedy tokens in both modes.  ``lsh_signature`` is
@@ -85,19 +91,33 @@ SEED = 0
 # SQLite commit of the two variants took 248 s on the card's host
 LM_ARCH, LM_DEPTH, LM_VOCAB = "deepseek-7b", 2, 32768
 LM_BATCHES, LM_PROMPTS, LM_PROMPT_LEN, LM_STEPS = 8, 4, 512, 16
-# last-token prefill logits, cuda mode (flash_attention: bf16 q, p kept
-# in fp32, output rounded to bf16) against torch mode (plain attend: p
-# rounded to bf16, output kept in fp32), both bf16 models: the attention
-# outputs differ by bf16 roundings, which the layers after them carry
-# into the logits.  Twice the 7.8e-2 of the first full-width run (max
-# |logit| 6.8); each run also prints both modes' distance from the fp32
-# model on one batch
+# last-token prefill logits, cuda mode (flash_attention's tensor-core
+# body: bf16 q, k, v, p rounded to bf16 before p v, output rounded to
+# bf16) against torch mode (plain attend: p rounded to bf16, output kept
+# in fp32), both bf16 models: p is bf16 in both modes, and the attention
+# outputs differ by the output's bf16 rounding and by summation order,
+# which the layers after them carry into the logits.  Twice the 7.8e-2
+# of the first full-width run (max |logit| 6.8), when the kernel kept p
+# in fp32; each run also prints both modes' distance from the fp32 model
+# on one batch
 LM_LOGIT_TOL = 0.15
 # the reference's four flash shapes (tests/test_kernels.py), in fp32
 FLASH_CASES = [(2, 64, 64, 4, 2, 16, True, 0, 0.0),
                (1, 32, 48, 4, 4, 8, True, 16, 30.0),
                (2, 16, 64, 2, 1, 16, False, 0, 0.0),
                (1, 48, 48, 8, 2, 32, True, 0, 50.0)]
+# the tensor-core body at the other head dims (gemma2's 256, hymba's 64),
+# bf16, with a window and the softcap: (B, Sq, Skv, H, K, hd, window, cap)
+FLASH_BF16_CASES = [(2, 512, 512, 8, 4, 64, 128, 50.0),
+                    (2, 512, 512, 8, 4, 256, 128, 50.0)]
+# flash_attention beside SDPA at shapes around the LM's, bf16 (timed only):
+# (label, B, S, H, hd, causal)
+FLASH_SHAPES = [("lm-noncausal", 4, 512, 32, 128, False),
+                ("lm-b16", 16, 512, 32, 128, True),
+                ("hd64", 4, 512, 64, 64, True),
+                ("hd256", 4, 512, 16, 256, True)]
+# dedup_matmul at the FFNN shape with the K split forced (timed only)
+MATMUL_SPLITS = (1, 4, 8, 16, 32)
 # the reference's three lsh_signature shapes (n, dim, hashes, r)
 LSH_CASES = [(16, 64, 16, 2.0), (33, 100, 24, 4.0), (128, 512, 128, 1.0)]
 # blocks of lm-v0 held against the reference's per-block numpy signatures
@@ -334,7 +354,8 @@ def kernel_phase(torch, ops, ref, slab_blocks: int, ffnn_blocks: int):
     nbytes = ids.numel() * 4 + bmap.numel() * 4 + 2 * B * D * 4
     b_ms, b_by = bound_ms(nbytes, 0.0)
     recs["dedup_embedding"] = dict(
-        kernel="dedup_embedding", max_abs_err=err, tolerance="bit-exact",
+        kernel="dedup_embedding", variant="cuda-core gather",
+        max_abs_err=err, tolerance="bit-exact",
         **ms, bound_ms=b_ms, bytes=nbytes, flops=0,
         bound_by=b_by, launches=ops.LAUNCHES["dedup_embedding"] - n0,
         shapes=f"ids[{B}] pool[{slab_blocks},{bh},{bw}] bmap[{gh},{gw}] "
@@ -351,12 +372,22 @@ def kernel_phase(torch, ops, ref, slab_blocks: int, ffnn_blocks: int):
     wmap = torch.from_numpy(rng.integers(0, ffnn_blocks, (nkb, nnb)).astype(
         np.int32)).to(dev)
     n0 = ops.LAUNCHES["dedup_matmul"]
-    errs = {}
+    errs, plans = {}, {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 6e-2)):
         xa, wa = x.to(dtype), wpool.to(dtype)
-        got = ops.dedup_matmul(xa, wa, wmap).float()
+        plans[dtype] = ops.matmul_plan(M, nkb, nnb, 64, 64, dtype)
+        before = dict(ops.VARIANT_LAUNCHES["dedup_matmul"])
+        first = ops.dedup_matmul(xa, wa, wmap)
+        second = ops.dedup_matmul(xa, wa, wmap)
+        got = first.float()
         want = ref.dedup_matmul(xa, wa, wmap).float()
         torch.cuda.synchronize()
+        body = plans[dtype].variant
+        if ops.VARIANT_LAUNCHES["dedup_matmul"][body] != before[body] + 2:
+            raise AssertionError(f"dedup_matmul {dtype} did not run its "
+                                 f"{body} body")
+        if not torch.equal(first, second):
+            raise AssertionError(f"dedup_matmul {dtype}: two calls differ")
         errs[str(dtype)] = float((got - want).abs().max())
         if not torch.allclose(got, want, rtol=tol, atol=tol):
             raise AssertionError(f"dedup_matmul {dtype} differs from its "
@@ -369,9 +400,19 @@ def kernel_phase(torch, ops, ref, slab_blocks: int, ffnn_blocks: int):
         + wmap.numel() * 4
     flops = 2 * M * nkb * 64 * nnb * 64
     b_ms, b_by = bound_ms(nbytes, flops)
+    # the bf16 body, timed beside the fp32 one (not on the FFNN path)
+    xb, wb, Wb = x.bfloat16(), wpool.bfloat16(), W.bfloat16()
+    bf16_ms = {"kernel_ms": graph_ms(torch, lambda: ops.dedup_matmul(
+                   xb, wb, wmap)),
+               "library_ms": graph_ms(torch, lambda: xb @ Wb)}
+    plan, plan16 = plans[torch.float32], plans[torch.bfloat16]
+    log(f"[matmul-splits] {split_sweep(torch, ops, x, wpool, wmap)}")
     recs["dedup_matmul"] = dict(
-        kernel="dedup_matmul", max_abs_err=errs["torch.float32"],
-        max_abs_err_bf16=errs["torch.bfloat16"],
+        kernel="dedup_matmul", variant=plan.variant, splits=plan.grid[2],
+        blocks=plan.blocks, max_abs_err=errs["torch.float32"],
+        max_abs_err_bf16=errs["torch.bfloat16"], bit_equal_calls=True,
+        bf16=dict(variant=plan16.variant, splits=plan16.grid[2],
+                  blocks=plan16.blocks, **bf16_ms),
         tolerance="1e-4 fp32, 6e-2 bf16", **ms, bound_ms=b_ms,
         bytes=nbytes, flops=flops, bound_by=b_by,
         launches=ops.LAUNCHES["dedup_matmul"] - n0,
@@ -380,6 +421,32 @@ def kernel_phase(torch, ops, ref, slab_blocks: int, ffnn_blocks: int):
     for rec in recs.values():
         log(json.dumps({"phase": "kernel-check", **rec}))
     return recs
+
+
+def split_sweep(torch, ops, x, wpool, wmap) -> str:
+    """Device microseconds of dedup_matmul at the FFNN shape with the K
+    split forced to each of MATMUL_SPLITS (the planner restored after)."""
+    planner = ops.matmul_plan
+    out = []
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            xa, wa = x.to(dtype), wpool.to(dtype)
+            row = []
+            for want in MATMUL_SPLITS:
+                def forced(M, nkb, nnb, bk, bn, dt, want=want):
+                    p = planner(M, nkb, nnb, bk, bn, dt)
+                    per = -(-nkb // want)
+                    n = -(-nkb // per)
+                    return p._replace(grid=p.grid[:2] + (n,), per_split=per,
+                                      workspace=(n, M, nnb * bn)
+                                      if n > 1 else None)
+                ops.matmul_plan = forced
+                ms = graph_ms(torch, lambda: ops.dedup_matmul(xa, wa, wmap))
+                row.append(f"s{want}={ms * 1e3:.2f}us")
+            out.append(f"{str(dtype)[6:]}: " + " ".join(row))
+    finally:
+        ops.matmul_plan = planner
+    return "; ".join(out)
 
 
 def serve(db_url, heads, batches, capacity, kernel_mode):
@@ -590,13 +657,39 @@ def flash_phase(torch, ops, ref, cfg):
     k = torch.randn(B, S, K, hd, device=dev, generator=g).bfloat16()
     v = torch.randn(B, S, K, hd, device=dev, generator=g).bfloat16()
     n0 = ops.LAUNCHES["flash_attention"]
+    variant = ops.flash_variant(q.dtype, hd)
+    w0 = ops.VARIANT_LAUNCHES["flash_attention"][variant]
     got = ops.flash_attention(q, k, v, causal=True).float()
     want = ref.flash_attention(q, k, v, causal=True).float()
     torch.cuda.synchronize()
+    if ops.VARIANT_LAUNCHES["flash_attention"][variant] != w0 + 1:
+        raise AssertionError(f"flash_attention did not run its {variant} "
+                             f"body")
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=2e-2, atol=2e-2):
         raise AssertionError(f"flash_attention bf16 differs from its plain "
                              f"version by {err} (tol 2e-2)")
+    errs16 = {}
+    for (b_, sq, skv, h_, k_, d_, window, cap) in FLASH_BF16_CASES:
+        qq, kk, vv = (torch.randn(b_, s_, n_, d_, device=dev,
+                                  generator=g).bfloat16()
+                      for s_, n_ in ((sq, h_), (skv, k_), (skv, k_)))
+        body = ops.flash_variant(qq.dtype, d_)
+        w0 = ops.VARIANT_LAUNCHES["flash_attention"][body]
+        a = ops.flash_attention(qq, kk, vv, causal=True, window=window,
+                                softcap=cap).float()
+        w = ref.flash_attention(qq, kk, vv, causal=True, window=window,
+                                softcap=cap).float()
+        torch.cuda.synchronize()
+        if body != "wgmma" or \
+                ops.VARIANT_LAUNCHES["flash_attention"][body] != w0 + 1:
+            raise AssertionError(f"flash_attention hd {d_} ran {body}, not "
+                                 f"the wgmma body")
+        errs16[d_] = float((a - w).abs().max())
+        if not torch.allclose(a, w, rtol=2e-2, atol=2e-2):
+            raise AssertionError(f"flash_attention bf16 hd {d_} window "
+                                 f"{window} softcap {cap} differs from its "
+                                 f"plain version by {errs16[d_]} (tol 2e-2)")
     errs32 = []
     for (b_, sq, skv, h_, k_, d_, causal, window, cap) in FLASH_CASES:
         qq = torch.randn(b_, sq, h_, d_, device=dev, generator=g)
@@ -621,14 +714,26 @@ def flash_phase(torch, ops, ref, cfg):
     pairs = B * H * S * (S + 1) // 2            # visible (query, key) pairs
     flops = 2 * 2 * pairs * hd                  # q k^T and p v
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
-    rec = dict(kernel="flash_attention", max_abs_err=err,
-               max_abs_err_fp32=max(errs32),
+    rec = dict(kernel="flash_attention", variant=variant, max_abs_err=err,
+               max_abs_err_bf16_hd=errs16, max_abs_err_fp32=max(errs32),
                tolerance="2e-2 bf16; rtol 1e-4 atol 1e-5 fp32", **ms,
                bound_ms=b_ms, bytes=nbytes, flops=flops, bound_by=b_by,
                launches=ops.LAUNCHES["flash_attention"] - n0,
-               shapes=f"q,k,v[{B},{S},{H},{hd}] bf16 causal; the four "
-                      f"reference shapes in fp32")
+               shapes=f"q,k,v[{B},{S},{H},{hd}] bf16 causal; bf16 hd 64 "
+                      f"and 256 with window and softcap; the four "
+                      f"reference shapes in fp32 (fma body)")
     log(json.dumps({"phase": "kernel-check", **rec}))
+    for label, b_, s_, h_, d_, causal in FLASH_SHAPES:
+        qq, kk, vv = (torch.randn(b_, s_, h_, d_, device=dev,
+                                  generator=g).bfloat16() for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
+        k_ms = graph_ms(torch, lambda: ops.flash_attention(qq, kk, vv,
+                                                           causal=causal))
+        s_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        log(f"[flash-shapes] {label} q,k,v[{b_},{s_},{h_},{d_}] causal="
+            f"{causal} body={ops.flash_variant(qq.dtype, d_)} "
+            f"kernel={k_ms * 1e3:.2f}us sdpa={s_ms * 1e3:.2f}us")
     return rec
 
 
@@ -709,7 +814,8 @@ def lsh_phase(torch, ops, ref, chunk, lsh):
     nbytes = (x.numel() + proj.numel() + bias.numel() + n * nh) * 4
     flops = 2 * n * dim * nh
     b_ms, b_by = bound_ms(nbytes, flops)
-    rec = dict(kernel="lsh_signature", max_abs_err=err,
+    rec = dict(kernel="lsh_signature", variant="cuda-core fp32",
+               max_abs_err=err,
                tolerance="equal off the 1e-4 bucket edges", **ms,
                bound_ms=b_ms, bytes=nbytes, flops=flops, bound_by=b_by,
                launches=ops.LAUNCHES["lsh_signature"] - n0,
@@ -841,9 +947,10 @@ def lm_phase(torch, ops, ref, tmpdir):
     engine, db, served, switches, wall = serve_lm(
         torch, url, kernel_apis, lm.rebuild, traffic, capacity, "cuda")
     launches = dict(ops.LAUNCHES)
+    bodies = dict(ops.VARIANT_LAUNCHES["flash_attention"])
     st = engine.stats
     pool = engine.server.device_pool
-    log(f"[lm-launches] {launches}")
+    log(f"[lm-launches] {launches} flash_attention by body: {bodies}")
     tokens = LM_BATCHES * LM_PROMPTS * LM_STEPS
     log(f"[lm-serve] batches={st.batches} device_batches={st.device_batches} "
         f"dense_fallbacks={st.dense_fallbacks} slab={pool.capacity} "
@@ -866,6 +973,9 @@ def lm_phase(torch, ops, ref, tmpdir):
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']} times, wanted "
                              f">= {LM_DEPTH * LM_BATCHES}")
+    if bodies != {"wgmma": launches["flash_attention"], "fma": 0}:
+        raise AssertionError(f"the LM prefill's flash_attention launches "
+                             f"went to {bodies}, not all to the wgmma body")
     prefill_ms, decode_ms = time_lm_steps(torch, engine,
                                           kernel_apis["lm-v1"],
                                           traffic[-1][1])
@@ -1106,7 +1216,8 @@ def main() -> int:
             raise AssertionError(f"{name} never launched on the main path")
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][1],
-            "replaces": meta[name][0], "launches": launches[name],
+            "replaces": meta[name][0], "variant": rec["variant"],
+            "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})

@@ -2,9 +2,15 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``_build/<name>-<hash>.so`` with ``nvcc`` for ``sm_90a`` (Hopper).
-The hash covers the source and the flags, so an unchanged kernel is not
-rebuilt within one checkout.  Nothing here runs at import time: the CPU
-tests import every module, and this machine need not have ``nvcc``.
+The hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an unchanged kernel is not rebuilt within one checkout.  Nothing
+here runs at import time: the CPU tests import every module, and this
+machine need not have ``nvcc``.
+
+The kernels that use TMA encode their tensor maps with the driver API's
+``cuTensorMapEncodeTiled``.  ``csrc/hopper.cuh`` fetches it at run time
+through the runtime's ``cudaGetDriverEntryPoint``, so no library links
+against ``libcuda`` and the flags below name none.
 """
 from __future__ import annotations
 
@@ -34,10 +40,11 @@ KERNELS = {
     "dedup_embedding": ("dedup_embedding_striped",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "dedup_matmul": ("dedup_matmul",
-                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _P]),
     "flash_attention": ("flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _I, _I, _P]),
+                         _F, _F, _I, _I, _I, _P]),
     "lsh_signature": ("lsh_signature", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
 }
 
@@ -62,6 +69,7 @@ def find_nvcc() -> Optional[str]:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -8,30 +8,49 @@ fallback from a CUDA tensor to the plain version.
 
 Each kernel keeps a launch count in :data:`LAUNCHES`, raised by one
 exactly where the wrapper launches the kernel, so a run can show that its
-hot path went through the kernel.
+hot path went through the kernel.  A kernel with two bodies also counts
+each body in :data:`VARIANT_LAUNCHES`; which body a call takes is decided
+by a pure function (:func:`matmul_plan`, :func:`flash_variant`) that the
+CPU tests reach.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build, ref
 
-__all__ = ["LAUNCHES", "reset_launches", "dedup_matmul", "dedup_embedding",
+__all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "reset_launches", "MatmulPlan",
+           "matmul_plan", "flash_variant", "dedup_matmul", "dedup_embedding",
            "dedup_embedding_striped", "flash_attention", "lsh_signature",
            "ref"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNELS}
+#: kernel name -> body -> launches, for the kernels with two bodies:
+#: "wgmma" (bf16 tensor cores) and "fma" (fp32 FMAs on CUDA cores)
+VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
+    "dedup_matmul": {"wgmma": 0, "fma": 0},
+    "flash_attention": {"wgmma": 0, "fma": 0},
+}
+_VARIANTS = {"fma": 0, "wgmma": 1}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: SMs of one H100; split-K aims at two blocks for each
+H100_SMS = 132
+#: TMA needs 16-byte aligned base addresses and byte strides
+TMA_ALIGN = 16
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in VARIANT_LAUNCHES.values():
+        for body in counts:
+            counts[body] = 0
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
@@ -52,19 +71,75 @@ def _check_index(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: indices must be int32, got {t.dtype}")
 
 
-def _launched(name: str, err: int) -> None:
+def _launched(name: str, err: int, variant: Optional[str] = None) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
     LAUNCHES[name] += 1
+    if variant is not None:
+        VARIANT_LAUNCHES[name][variant] += 1
+
+
+def _check_tma(name: str, tensors, strides) -> None:
+    """TMA reads each tensor from a 16-byte aligned base with 16-byte
+    aligned byte strides; raise on what it cannot take."""
+    for t in tensors:
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name}: a base address is not {TMA_ALIGN}-byte "
+                             f"aligned (TMA)")
+    for what, nbytes in strides:
+        if nbytes % TMA_ALIGN:
+            raise ValueError(f"{name}: {what} is {nbytes} bytes, not a "
+                             f"multiple of {TMA_ALIGN} (TMA)")
 
 
 # ------------------------------------------------------------ dedup_matmul --
+class MatmulPlan(NamedTuple):
+    """How ``dedup_matmul`` runs one call on the card."""
+    variant: str                 # "wgmma" or "fma"
+    tile: Tuple[int, int]        # output rows x columns a block
+    grid: Tuple[int, int, int]   # (M tiles, N tiles, splits)
+    per_split: int               # storage row-blocks a split sums
+    workspace: Optional[Tuple[int, int, int]]   # fp32 [splits, M, N]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def matmul_plan(M: int, nkb: int, nnb: int, bk: int, bn: int,
+                dtype: torch.dtype) -> MatmulPlan:
+    """The body, tiles and K split of one ``dedup_matmul`` call.
+
+    bf16 with a storage depth ``bk`` that is a multiple of 16 (wgmma's k)
+    takes the tensor-core body, 64 x 32 output tiles; fp32, and bf16 at
+    other depths, the CUDA-core body, 32 x 64 tiles (a tile never crosses
+    a storage-block column).  K is split along the storage row-blocks into
+    runs of equal length, as few as give the grid 2 x 132 blocks where
+    ``nkb`` allows; more than one split sums through an fp32 workspace."""
+    wgmma = dtype == torch.bfloat16 and bk % 16 == 0
+    tm, tn = (64, 32) if wgmma else (32, 64)
+    tiles_m = -(-M // tm)
+    tiles_n = nnb * -(-bn // tn)
+    want = -(-2 * H100_SMS // max(1, tiles_m * tiles_n))
+    # the longest run of storage blocks that still gives ``want`` splits
+    per = max([p for p in range(1, nkb + 1) if -(-nkb // p) >= want],
+              default=1)
+    splits = -(-nkb // per)
+    per = -(-nkb // splits)                    # even runs, none empty
+    return MatmulPlan("wgmma" if wgmma else "fma", (tm, tn),
+                      (tiles_m, tiles_n, splits), per,
+                      (splits, M, nnb * bn) if splits > 1 else None)
+
+
 def dedup_matmul(x, pool, block_map, out_dtype=None):
     """x [..., K] @ W_virtual -> [..., N].
 
     pool [n_distinct, bk, bn]; block_map [K/bk, N/bn] int32.  On CUDA the
     kernel masks a ragged M itself (no padding pass); x, pool and the
-    output share one dtype (float32 or bfloat16)."""
+    output share one dtype (float32 or bfloat16), and TMA needs x and
+    pool 16-byte aligned with ``bk`` and ``bn`` rows of whole 16-byte
+    units.  The body and the K split come from :func:`matmul_plan`; the
+    result is the same bits from call to call."""
     if x.device.type == "cpu":
         return ref.dedup_matmul(x, pool, block_map, out_dtype=out_dtype)
     if x.device.type != "cuda":
@@ -85,12 +160,23 @@ def dedup_matmul(x, pool, block_map, out_dtype=None):
     _check_cuda("dedup_matmul", x2, pool, block_map)
     M = x2.shape[0]
     out = torch.empty((M, nnb * bn), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return out.reshape(lead + (nnb * bn,))
+    es = x.element_size()
+    _check_tma("dedup_matmul", (x2, pool),
+               (("a storage block's row of x (bk)", bk * es),
+                ("a row of x (K)", nkb * bk * es),
+                ("a row of a storage block (bn)", bn * es)))
+    plan = matmul_plan(M, nkb, nnb, bk, bn, x.dtype)
+    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+          if plan.workspace else None)
     fn = _build.load("dedup_matmul")
     with torch.cuda.device(x.device):
         err = fn(x2.data_ptr(), pool.data_ptr(), block_map.data_ptr(),
-                 out.data_ptr(), M, nkb, nnb, bk, bn,
-                 _DTYPES[x.dtype], _stream(x.device))
-    _launched("dedup_matmul", err)
+                 out.data_ptr(), None if ws is None else ws.data_ptr(),
+                 M, pool.shape[0], nkb, nnb, bk, bn, _DTYPES[x.dtype],
+                 _VARIANTS[plan.variant], plan.grid[2], _stream(x.device))
+    _launched("dedup_matmul", err, plan.variant)
     return out.reshape(lead + (nnb * bn,))
 
 
@@ -141,16 +227,26 @@ def dedup_embedding(ids, pool, row_block_map):
 
 
 # --------------------------------------------------------- flash_attention --
+def flash_variant(dtype: torch.dtype, hd: int) -> str:
+    """The body of ``flash_attention`` for a dtype and head dim: "wgmma"
+    (bf16 tensor cores, TMA) for bf16 with hd a multiple of 16 in
+    [64, 256]; "fma" (fp32 FMAs on CUDA cores) for fp32 and the other
+    bf16 head dims."""
+    if dtype == torch.bfloat16 and hd % 16 == 0 and 64 <= hd <= 256:
+        return "wgmma"
+    return "fma"
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None):
     """q [B, Sq, H, hd]; k, v [B, Skv, K, hd] (GQA, H % K == 0) ->
     [B, Sq, H, hd] in q's dtype.
 
     On CUDA the kernel masks ragged Sq and Skv itself (no padding pass)
-    and takes float32 or bfloat16 for all three tensors, hd <= 256.  It
-    skips key tiles the mask hides entirely unless the call can produce a
-    row with no visible key, which then keeps the plain version's mean of
-    v."""
+    and takes float32 or bfloat16 for all three tensors, hd <= 256; the
+    body comes from :func:`flash_variant`.  It skips key tiles the mask
+    hides entirely unless the call can produce a row with no visible key,
+    which then keeps the plain version's mean of v."""
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
@@ -177,6 +273,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     if B == 0 or Sq == 0:
         return out
     scale = hd ** -0.5 if scale is None else float(scale)
+    variant = flash_variant(q.dtype, hd)
+    if variant == "wgmma":
+        _check_tma("flash_attention", (q, k, v), ())
     # a row with no visible key exists only if some query sits a whole
     # window past the last key; only then must every tile be visited
     skip = not (window and Sq >= Skv + window)
@@ -185,8 +284,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Sq, Skv, H, Kh, hd, int(bool(causal)), int(window),
                  float(softcap), scale, int(skip), _DTYPES[q.dtype],
-                 _stream(q.device))
-    _launched("flash_attention", err)
+                 _VARIANTS[variant], _stream(q.device))
+    _launched("flash_attention", err, variant)
     return out
 
 

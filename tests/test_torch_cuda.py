@@ -8,11 +8,13 @@ card and without the JAX package:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the gather is a pure copy and must be bit-equal; the
-product accumulates in IEEE fp32 in another order than the plain
-version, 1e-4 for fp32 and 6e-2 for bf16 inputs (as the reference's
-``tests/test_kernels.py``); served logits 1e-5 against the host mode.
-Attention: rtol 1e-4 / atol 1e-5 in fp32 (the reference's flash
-tolerance), 2e-2 in bf16 (the result is rounded once to bf16).  LSH
+product accumulates in fp32 in another order than the plain version,
+1e-4 for fp32 and 6e-2 for bf16 inputs (as the reference's
+``tests/test_kernels.py``), and is the same bits from call to call;
+served logits 1e-5 against the host mode.  Attention: rtol 1e-4 / atol
+1e-5 in fp32 (the reference's flash tolerance), 2e-2 in bf16 (p and the
+result are each rounded once to bf16).  Each test of a kernel with two
+bodies asserts which body ran (``ops.VARIANT_LAUNCHES``).  LSH
 signatures: equal except hashes at a bucket edge (``ref.lsh_edges``);
 stores built on the card: block maps and pages equal to the host build.
 """
@@ -74,24 +76,81 @@ def test_striped_gather_bit_exact(cuda_device, gh, gw, bh, bw, width, B):
                                                         width=width))
 
 
+def _matmul_inputs(device, dtype, M, bk, bn, nkb, nnb, nd, seed=1):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, nkb * bk)).astype(
+        np.float32)).to(device, dtype)
+    pool = torch.from_numpy(rng.standard_normal((nd, bk, bn)).astype(
+        np.float32)).to(device, dtype)
+    bmap = torch.from_numpy(rng.integers(0, nd, (nkb, nnb)).astype(
+        np.int32)).to(device)
+    return x, pool, bmap
+
+
+def _matmul_check(x, pool, bmap, variant):
+    before = dict(ops.VARIANT_LAUNCHES["dedup_matmul"])
+    got = ops.dedup_matmul(x, pool, bmap)
+    torch.cuda.synchronize()
+    after = ops.VARIANT_LAUNCHES["dedup_matmul"]
+    assert {b: after[b] - before[b] for b in after} == \
+        {b: int(b == variant) for b in after}
+    assert got.dtype == x.dtype
+    want = ref.dedup_matmul(x, pool, bmap)
+    tol = 1e-4 if x.dtype == torch.float32 else 6e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,bk,bn,nkb,nnb,nd", MATMUL_SHAPES)
 def test_dedup_matmul_matches_plain(cuda_device, dtype, M, bk, bn, nkb, nnb,
                                     nd):
-    rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.standard_normal((M, nkb * bk)).astype(
-        np.float32)).to(cuda_device, dtype)
-    pool = torch.from_numpy(rng.standard_normal((nd, bk, bn)).astype(
-        np.float32)).to(cuda_device, dtype)
-    bmap = torch.from_numpy(rng.integers(0, nd, (nkb, nnb)).astype(
-        np.int32)).to(cuda_device)
-    got = ops.dedup_matmul(x, pool, bmap)
+    """The planner's body: wgmma for bf16 at bk % 16 == 0, else fma."""
+    x, pool, bmap = _matmul_inputs(cuda_device, dtype, M, bk, bn, nkb, nnb,
+                                   nd)
+    plan = ops.matmul_plan(M, nkb, nnb, bk, bn, dtype)
+    _matmul_check(x, pool, bmap, plan.variant)
+
+
+@pytest.mark.parametrize("M,bk,bn,nkb,nnb,nd", MATMUL_SHAPES)
+def test_dedup_matmul_bf16_on_the_fma_body(cuda_device, monkeypatch, M, bk,
+                                           bn, nkb, nnb, nd):
+    """bf16 through the CUDA-core body, which the planner keeps for
+    depths that are not a multiple of 16 (forced here at every shape)."""
+    plan = ops.matmul_plan
+    monkeypatch.setattr(ops, "matmul_plan", lambda M, nkb, nnb, bk, bn, dt:
+                        plan(M, nkb, nnb, bk, bn, torch.float32))
+    x, pool, bmap = _matmul_inputs(cuda_device, torch.bfloat16, M, bk, bn,
+                                   nkb, nnb, nd)
+    _matmul_check(x, pool, bmap, "fma")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dedup_matmul_is_deterministic(cuda_device, dtype):
+    """Split-K sums its partials in a fixed order: two calls at the FFNN
+    shape (256 blocks, 32 splits) give the same bits."""
+    x, pool, bmap = _matmul_inputs(cuda_device, dtype, 64, 64, 64, 32, 4, 40)
+    assert ops.matmul_plan(64, 32, 4, 64, 64, dtype).grid[2] == 32
+    a = ops.dedup_matmul(x, pool, bmap)
+    b = ops.dedup_matmul(x, pool, bmap)
     torch.cuda.synchronize()
-    assert got.dtype == dtype
-    want = ref.dedup_matmul(x, pool, bmap)
-    tol = 1e-4 if dtype == torch.float32 else 6e-2
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    assert torch.equal(a, b)
+
+
+def test_dedup_matmul_refuses_what_tma_cannot_read(cuda_device):
+    """A base address or a row that is not a whole number of 16-byte
+    units raises instead of launching."""
+    x, pool, bmap = _matmul_inputs(cuda_device, torch.float32, 8, 16, 16, 2,
+                                   2, 2)
+    n0 = ops.LAUNCHES["dedup_matmul"]
+    shifted = torch.empty(x.numel() + 1, device=cuda_device)[1:].view_as(x)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.dedup_matmul(shifted, pool, bmap)
+    narrow = torch.zeros(2, 16, 6, device=cuda_device)      # 24-byte rows
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.dedup_matmul(x, narrow, bmap)
+    assert ops.LAUNCHES["dedup_matmul"] == n0
 
 
 def test_cuda_serving_matches_host(cuda_device):
@@ -149,10 +208,13 @@ def test_flash_attention_matches_plain(cuda_device, dtype, B, Sq, Skv, H, K,
         np.float32)).to(cuda_device, dtype)
         for shape in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
     n0 = ops.LAUNCHES["flash_attention"]
+    v0 = dict(ops.VARIANT_LAUNCHES["flash_attention"])
     got = ops.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=cap)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == n0 + 1
+    body = ops.flash_variant(dtype, hd)
+    assert ops.VARIANT_LAUNCHES["flash_attention"][body] == v0[body] + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = ref.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=cap)
@@ -160,6 +222,64 @@ def test_flash_attention_matches_plain(cuda_device, dtype, B, Sq, Skv, H, K,
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=rtol,
                                atol=atol)
+
+
+#: bf16 cases of the tensor-core body at head dims 64, 112 (padded to
+#: 128), 128 and 256
+WGMMA_FLASH_CASES = [
+    (1, 256, 256, 4, 1, 128, True, 0, 30.0),    # causal, softcap, GQA 4:1
+    (2, 100, 37, 4, 2, 64, False, 0, 0.0),      # cross, ragged Sq and Skv
+    (1, 96, 160, 2, 1, 256, True, 32, 50.0),    # window, softcap, GQA
+    (1, 150, 40, 2, 2, 128, True, 24, 0.0),     # rows with no visible key
+    (1, 64, 64, 2, 2, 112, True, 0, 0.0),       # padded head dim
+    (2, 512, 512, 4, 4, 128, True, 0, 0.0),     # the LM prefill, 8 tiles
+    (1, 33, 300, 2, 1, 64, False, 0, 0.0),      # the ring wraps 2 times
+    (1, 200, 200, 2, 2, 256, True, 64, 0.0),    # tiles skipped at both ends
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,cap",
+                         WGMMA_FLASH_CASES)
+def test_flash_attention_wgmma_body(cuda_device, B, Sq, Skv, H, K, hd, causal,
+                                    window, cap):
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+        for shape in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
+    v0 = dict(ops.VARIANT_LAUNCHES["flash_attention"])
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cap)
+    torch.cuda.synchronize()
+    now = ops.VARIANT_LAUNCHES["flash_attention"]
+    assert (now["wgmma"] - v0["wgmma"], now["fma"] - v0["fma"]) == (1, 0)
+    want = ref.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=cap)
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+    if window and Sq >= Skv + window:              # no visible key: mean of v
+        mean = v.float().mean(dim=1).cpu().numpy()        # [B, K, hd]
+        rows = got[:, Skv + window:].reshape(B, -1, K, H // K, hd)
+        np.testing.assert_allclose(
+            rows, np.broadcast_to(mean[:, None, :, None], rows.shape),
+            rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_bf16_on_the_fma_body(cuda_device, monkeypatch):
+    """bf16 at head dim 128 through the CUDA-core body (forced), which
+    serves the other bf16 head dims."""
+    monkeypatch.setattr(ops, "flash_variant", lambda dtype, hd: "fma")
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+        for shape in ((1, 130, 4, 128), (1, 130, 2, 128), (1, 130, 2, 128)))
+    v0 = ops.VARIANT_LAUNCHES["flash_attention"]["fma"]
+    got = ops.flash_attention(q, k, v, causal=True, softcap=20.0)
+    torch.cuda.synchronize()
+    assert ops.VARIANT_LAUNCHES["flash_attention"]["fma"] == v0 + 1
+    want = ref.flash_attention(q, k, v, causal=True, softcap=20.0)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
 
 
 def test_bf16_dot_accumulates_in_fp32(cuda_device):

@@ -128,16 +128,98 @@ def test_striped_gather_matches_jax(gh, gw, bh, bw, width, B):
 
 
 def test_cpu_wrappers_launch_no_kernel():
-    """A CPU tensor takes the plain version: no launch is counted."""
+    """A CPU tensor takes the plain version: no launch is counted, by
+    kernel or by body."""
     before = dict(ops.LAUNCHES)
+    bodies = {k: dict(v) for k, v in ops.VARIANT_LAUNCHES.items()}
     ops.dedup_embedding_striped(_tt(np.zeros(4, np.int32), "int32"),
                                 torch.zeros(2, 4, 8),
                                 _tt(np.zeros((1, 1), np.int32), "int32"))
-    ops.dedup_matmul(torch.zeros(3, 4), torch.zeros(1, 4, 8),
-                     _tt(np.zeros((1, 1), np.int32), "int32"))
-    ops.flash_attention(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 1, 8),
-                        torch.zeros(1, 4, 1, 8))
+    for dt in (torch.float32, torch.bfloat16):
+        ops.dedup_matmul(torch.zeros(3, 64, dtype=dt),
+                         torch.zeros(1, 64, 64, dtype=dt),
+                         _tt(np.zeros((1, 1), np.int32), "int32"))
+        ops.flash_attention(torch.zeros(1, 4, 2, 128, dtype=dt),
+                            torch.zeros(1, 4, 1, 128, dtype=dt),
+                            torch.zeros(1, 4, 1, 128, dtype=dt))
     assert ops.LAUNCHES == before
+    assert ops.VARIANT_LAUNCHES == bodies
+
+
+def test_reset_launches_clears_the_body_counts():
+    ops.VARIANT_LAUNCHES["flash_attention"]["wgmma"] += 3
+    ops.LAUNCHES["dedup_matmul"] += 1
+    ops.reset_launches()
+    assert set(ops.LAUNCHES.values()) == {0}
+    assert all(n == 0 for v in ops.VARIANT_LAUNCHES.values()
+               for n in v.values())
+
+
+# ------------------------------------------------- the planners (pure) --
+@pytest.mark.parametrize("dtype,bk,body", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 16, "wgmma"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 24, "fma"),
+    (torch.bfloat16, 8, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 16, "fma"),
+])
+def test_matmul_plan_body(dtype, bk, body):
+    """bf16 takes the tensor cores where wgmma's k of 16 divides the
+    storage depth; fp32 stays in IEEE fp32 on the CUDA cores."""
+    plan = ops.matmul_plan(64, 4, 2, bk, 64, dtype)
+    assert plan.variant == body
+    assert plan.tile == ((64, 32) if body == "wgmma" else (32, 64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_plan_fills_the_card_at_the_ffnn_shape(dtype):
+    """x [64, 2048] @ W1 [2048, 256] in 64x64 blocks: one storage block a
+    split, 32 splits, at least 256 blocks, an fp32 [32, 64, 256]
+    workspace."""
+    plan = ops.matmul_plan(64, 32, 4, 64, 64, dtype)
+    assert plan.blocks >= 256
+    assert plan.grid[2] == 32 and plan.per_split == 1
+    assert plan.workspace == (32, 64, 256)
+
+
+@pytest.mark.parametrize("M,nkb,nnb,bk,bn", [
+    (1, 7, 1, 16, 16), (100, 3, 3, 16, 128), (7, 3, 2, 24, 72),
+    (64, 10, 1, 64, 64), (4096, 32, 4, 64, 64), (33, 100, 5, 32, 40),
+])
+def test_matmul_plan_splits(M, nkb, nnb, bk, bn):
+    """Runs of equal length, none empty, covering every storage block;
+    at least 2 x 132 blocks where K allows, one split (no workspace)
+    where the tiles alone fill the card."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = ops.matmul_plan(M, nkb, nnb, bk, bn, dtype)
+        tm, tn = plan.tile
+        tiles = -(-M // tm) * nnb * -(-bn // tn)
+        assert plan.grid[:2] == (-(-M // tm), nnb * -(-bn // tn))
+        splits, per = plan.grid[2], plan.per_split
+        assert 1 <= splits <= nkb
+        assert per * (splits - 1) < nkb <= per * splits
+        assert plan.blocks >= min(2 * ops.H100_SMS, tiles * nkb)
+        assert (plan.workspace is None) == (splits == 1)
+        if splits > 1:
+            assert plan.workspace == (splits, M, nnb * bn)
+        # the fewest splits that runs of equal length allow
+        want = -(-2 * ops.H100_SMS // tiles)
+        counts = {-(-nkb // p) for p in range(1, nkb + 1)}
+        assert splits == min((c for c in counts if c >= want), default=nkb)
+        assert per == -(-nkb // splits)
+
+
+@pytest.mark.parametrize("dtype,hd,body", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 112, "wgmma"),
+    (torch.bfloat16, 32, "fma"), (torch.bfloat16, 8, "fma"),
+    (torch.bfloat16, 72, "fma"), (torch.float32, 128, "fma"),
+    (torch.float32, 64, "fma"),
+])
+def test_flash_variant(dtype, hd, body):
+    """The tensor-core body takes bf16 at a head dim that is a multiple
+    of 16 in [64, 256]; fp32 keeps the CUDA-core body (its 1e-4
+    tolerance), and so do the other bf16 head dims."""
+    assert ops.flash_variant(dtype, hd) == body
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
