@@ -23,7 +23,11 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      bits from two calls) and time kernel, plain version and one PyTorch
      library call with CUDA events; each line names the body that ran
      (``variant``: wgmma or fma) and ``dedup_matmul``'s K splits; a
-     ``[matmul-splits]`` line times it with the split forced to 1-32;
+     ``[matmul-splits]`` line times it with the split forced to 1-32; a
+     ``[gather-shapes]`` line times ``dedup_embedding`` (both index
+     instances, idx32 and idx64, forced) and ``flat_rows[idx]`` at the
+     serving shape and at 65,536 ids over a 335 MB slab, each with its
+     byte bound and the share of it reached;
   4. serving — the main path: the word2vec scenario at d = 300 (vocab
      32,768, 4 variants, 64x64 blocks, 8 blocks a page) committed to
      SQLite through ``DedupDB``, reopened live and served through the
@@ -55,7 +59,10 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      held against its plain version at one chunk of the LM store
      ([65,536, 4096], 64 hashes, r = 0.25, the real weights), at the
      CLI's LM store ([n, 1024], 16 hashes, r = 4) and at the reference's
-     three test shapes, and timed at the chunk; every block of lm-v0 is
+     three test shapes, and timed at the chunk (``[lsh-bodies]`` times
+     both bodies, tf32x3 and fma, at the chunk and the CLI's shape, each
+     with its bound); every launch of the word2vec and LM store builds
+     must have taken the tf32x3 body; every block of lm-v0 is
      signed by the build's routine and held against the plain version
      on the card and, on a sample of 20,480 blocks, against the
      reference's per-block numpy signatures.  Signatures may differ only
@@ -82,6 +89,7 @@ ROOT = Path(__file__).resolve().parent
 # tensor cores (the kernels stay in IEEE fp32: no TF32), bf16 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
 
 VOCAB, D, VARIANTS, BATCHES, DOCS = 32768, 300, 4, 40, 32
@@ -118,6 +126,9 @@ FLASH_SHAPES = [("lm-noncausal", 4, 512, 32, 128, False),
                 ("hd256", 4, 512, 16, 256, True)]
 # dedup_matmul at the FFNN shape with the K split forced (timed only)
 MATMUL_SPLITS = (1, 4, 8, 16, 32)
+# dedup_embedding at a bytes-bound shape (timed only): ids over a slab of
+# 262,144 rows at width 300 fp32 in 64x64 blocks (335 MB; out 79 MB)
+GATHER_IDS, GATHER_ROWS = 65536, 262144
 # the reference's three lsh_signature shapes (n, dim, hashes, r)
 LSH_CASES = [(16, 64, 16, 2.0), (33, 100, 24, 4.0), (128, 512, 128, 1.0)]
 # blocks of lm-v0 held against the reference's per-block numpy signatures
@@ -210,6 +221,15 @@ def same_maps(a, b, what):
                              f"host index build differ")
 
 
+def all_tf32x3(ops, launches, what):
+    """Every lsh_signature launch since the last reset took the tf32x3
+    body."""
+    bodies = dict(ops.VARIANT_LAUNCHES["lsh_signature"])
+    if bodies != {"tf32x3": launches, "fma": 0}:
+        raise AssertionError(f"{what}: lsh_signature launches by body "
+                             f"{bodies}, not all {launches} on tf32x3")
+
+
 def index_line(st):
     return (f"blocks={st.blocks} launches={st.launches} "
             f"sign_device={st.sign_device_seconds * 1e3:.2f}ms "
@@ -232,6 +252,7 @@ def index_phase(torch, ops, tmpdir):
     task, store, heads = word2vec_store("cuda")
     torch.cuda.synchronize()
     launches = ops.LAUNCHES["lsh_signature"]
+    all_tf32x3(ops, launches, "word2vec build")
     _, host, _ = word2vec_store("host")
     urls = {m: f"sqlite:///{Path(tmpdir) / f'models-{m}.db'}"
             for m in ("cuda", "host")}
@@ -247,7 +268,7 @@ def index_phase(torch, ops, tmpdir):
                              "differ in distinct blocks, pages or "
                              "committed page hashes")
     log(f"[index] word2vec build cuda: {index_line(dd.index_stats)} "
-        f"lsh_launches={launches}")
+        f"lsh_launches={launches} (all tf32x3)")
     log(f"[index] word2vec build host: {index_line(hd.index_stats)}")
     log(f"[index] word2vec cuda == host: block maps, distinct="
         f"{dd.num_distinct} of {len(dd.distinct)}, pages="
@@ -267,6 +288,8 @@ def index_phase(torch, ops, tmpdir):
         torch.cuda.synchronize()
         if mode == "cuda":
             launches += ops.LAUNCHES["lsh_signature"]
+            all_tf32x3(ops, ops.LAUNCHES["lsh_signature"],
+                       "word2vec reopen + update")
         maps[mode] = block_maps(db.store.dedup)
         stats[mode] = (index_line(db.store.dedup.index_stats),
                        res.deduped_blocks, res.total_blocks)
@@ -336,9 +359,18 @@ def kernel_phase(torch, ops, ref, slab_blocks: int, ffnn_blocks: int):
     ids = torch.randint(0, VOCAB, (B,), dtype=torch.int32, device=dev,
                         generator=g)
     n0 = ops.LAUNCHES["dedup_embedding"]
+    v0 = dict(ops.VARIANT_LAUNCHES["dedup_embedding"])
     got = ops.dedup_embedding_striped(ids, pool, bmap, width=D)
     want = ref.dedup_embedding_striped(ids, pool, bmap, width=D)
     torch.cuda.synchronize()
+    moved = [b for b, c in ops.VARIANT_LAUNCHES["dedup_embedding"].items()
+             if c != v0[b]]
+    expected = f"idx{ops.gather_index_bits(pool.numel(), B * D)}"
+    if moved != [expected] or \
+            ops.VARIANT_LAUNCHES["dedup_embedding"][expected] != \
+            v0[expected] + 1:
+        raise AssertionError(f"dedup_embedding ran {moved}, not the "
+                             f"{expected} instance alone")
     err = float((got - want).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"dedup_embedding differs from its plain "
@@ -353,8 +385,9 @@ def kernel_phase(torch, ops, ref, slab_blocks: int, ffnn_blocks: int):
         lambda: flat_rows[idx].view(B, gw * bw)[:, :D])
     nbytes = ids.numel() * 4 + bmap.numel() * 4 + 2 * B * D * 4
     b_ms, b_by = bound_ms(nbytes, 0.0)
+    log(f"[gather-shapes] {gather_shapes(torch, ops, ids, pool, bmap, g)}")
     recs["dedup_embedding"] = dict(
-        kernel="dedup_embedding", variant="cuda-core gather",
+        kernel="dedup_embedding", variant=f"warp-per-row gather, {moved[0]}",
         max_abs_err=err, tolerance="bit-exact",
         **ms, bound_ms=b_ms, bytes=nbytes, flops=0,
         bound_by=b_by, launches=ops.LAUNCHES["dedup_embedding"] - n0,
@@ -421,6 +454,47 @@ def kernel_phase(torch, ops, ref, slab_blocks: int, ffnn_blocks: int):
     for rec in recs.values():
         log(json.dumps({"phase": "kernel-check", **rec}))
     return recs
+
+
+def gather_shapes(torch, ops, ids, pool, bmap, g) -> str:
+    """Device microseconds of dedup_embedding (its 32- and 64-bit index
+    instances, forced in turn) and of ``flat_rows[idx]``
+    (idx precomputed, untimed) at the serving shape and at GATHER_IDS ids
+    over a slab of GATHER_ROWS rows, width D fp32, each with its byte
+    bound (ids, map, rows read, rows written) and the share of it the
+    kernel reaches.  Timed only."""
+    dev = ids.device
+    gh = GATHER_ROWS // 64
+    big_pool = torch.randn(gh * 5, 64, 64, device=dev, generator=g)
+    big_map = torch.randint(0, gh * 5, (gh, 5), dtype=torch.int32,
+                            device=dev, generator=g)
+    big_ids = torch.randint(0, GATHER_ROWS, (GATHER_IDS,), dtype=torch.int32,
+                            device=dev, generator=g)
+    out = []
+    for label, i, p, m in (("serving", ids, pool, bmap),
+                           ("bytes", big_ids, big_pool, big_map)):
+        B, gw = i.numel(), m.shape[1]
+        flat_rows = p.view(-1, 64)
+        idx = m.long()[i.long() // 64] * 64 + (i.long() % 64)[:, None]
+        chooser = ops.gather_index_bits
+        k_ms = {}
+        try:
+            for bits in (32, 64):
+                ops.gather_index_bits = lambda *a, bits=bits: bits
+                k_ms[bits] = graph_ms(torch, lambda: ops.dedup_embedding_striped(
+                    i, p, m, width=D))
+        finally:
+            ops.gather_index_bits = chooser
+        l_ms = graph_ms(torch, lambda: flat_rows[idx].view(B, gw * 64)[:, :D])
+        b_ms, _ = bound_ms(i.numel() * 4 + m.numel() * 4 + 2 * B * D * 4, 0.0)
+        out.append(f"{label} ids[{B}] pool[{p.shape[0]},64,64] "
+                   f"({p.numel() * 4 / 1e6:.0f}MB) width={D}: "
+                   f"kernel idx32={k_ms[32] * 1e3:.3f}us "
+                   f"idx64={k_ms[64] * 1e3:.3f}us flat_rows[idx]="
+                   f"{l_ms * 1e3:.3f}us bound={b_ms * 1e3:.3f}us "
+                   f"share={b_ms / k_ms[32]:.3f}")
+    del big_pool
+    return "; ".join(out)
 
 
 def split_sweep(torch, ops, x, wpool, wmap) -> str:
@@ -562,6 +636,7 @@ def lm_store(cfg, url):
     ops.reset_launches()
     store, t_reg, t_pack = build("cuda")
     lsh_launches = ops.LAUNCHES["lsh_signature"]
+    all_tf32x3(ops, lsh_launches, "LM build")
     host, h_reg, h_pack = build("host")
     same_maps(block_maps(store.dedup), block_maps(host.dedup), "LM build")
     if store.dedup.num_distinct != host.dedup.num_distinct \
@@ -597,7 +672,7 @@ def lm_store(cfg, url):
             f"rest={reg - query_s:.1f}s pack={pack:.1f}s")
     log(f"[lm-index] cuda == host: block maps, distinct="
         f"{store.dedup.num_distinct}, pages={pages}; lsh_launches="
-        f"{lsh_launches}")
+        f"{lsh_launches} (all tf32x3)")
     return lm, lm32, rec, store.dedup.index.lsh
 
 
@@ -785,8 +860,13 @@ def lsh_phase(torch, ops, ref, chunk, lsh):
     x = torch.from_numpy(chunk).to(dev)
     n, dim = x.shape
     nh = proj.shape[1]
+    variant = ops.lsh_variant(n, dim, nh)
     n0 = ops.LAUNCHES["lsh_signature"]
+    v0 = ops.VARIANT_LAUNCHES["lsh_signature"][variant]
     err, edges, diff = lsh_check(torch, ops, ref, x, proj, bias, r, "chunk")
+    if ops.VARIANT_LAUNCHES["lsh_signature"][variant] != v0 + 1:
+        raise AssertionError(f"lsh_signature at the chunk did not run its "
+                             f"{variant} body")
     checks = [f"chunk[{n},{dim}]x{nh}: edge_hashes={edges} differ={diff}"]
     cblocks, clsh = cli_lm_blocks()
     cases = [(f"cli[{len(cblocks)},1024]x16", cblocks, clsh.proj, clsh.bias,
@@ -811,19 +891,58 @@ def lsh_phase(torch, ops, ref, chunk, lsh):
     # the library yardstick is the plain version itself: one cuBLAS
     # sgemm (TF32 off) and the elementwise bias, divide and floor
     ms["library_ms"] = ms["plain_ms"]
-    nbytes = (x.numel() + proj.numel() + bias.numel() + n * nh) * 4
-    flops = 2 * n * dim * nh
-    b_ms, b_by = bound_ms(nbytes, flops)
-    rec = dict(kernel="lsh_signature", variant="cuda-core fp32",
+    nbytes, flops, b_ms, b_by = lsh_bound(n, dim, nh, variant)
+    core_ms, _ = bound_ms(nbytes, flops)
+    log(f"[lsh-bodies] {lsh_bodies(torch, ops, x, proj, bias, r, cblocks, clsh)}")
+    rec = dict(kernel="lsh_signature", variant=variant,
                max_abs_err=err,
                tolerance="equal off the 1e-4 bucket edges", **ms,
-               bound_ms=b_ms, bytes=nbytes, flops=flops, bound_by=b_by,
+               bound_ms=b_ms, fp32_core_bound_ms=core_ms, bytes=nbytes,
+               flops=flops, bound_by=b_by,
                launches=ops.LAUNCHES["lsh_signature"] - n0,
                shapes=f"blocks[{n},{dim}] proj[{dim},{nh}] r={r}; the CLI's "
                       f"LM store; the three reference shapes",
                checks=checks)
     log(json.dumps({"phase": "kernel-check", **rec}))
     return rec
+
+
+def lsh_bound(n, dim, nh, variant):
+    """(bytes, flops of the fp32 product, bound ms, bound by) of one call:
+    x, proj and bias read once, the int32 signatures written once; the
+    tf32x3 body does three tf32 products at the tensor cores' rate, the
+    fma body one fp32 product at the CUDA cores'."""
+    nbytes = (n * dim + dim * nh + nh + n * nh) * 4
+    flops = 2 * n * dim * nh
+    if variant == "tf32x3":
+        return (nbytes, flops) + bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    return (nbytes, flops) + bound_ms(nbytes, flops)
+
+
+def lsh_bodies(torch, ops, x, proj, bias, r, cblocks, clsh) -> str:
+    """Device milliseconds of both lsh_signature bodies (forced) at the
+    chunk and at the CLI's LM store shape, each beside its bound; the
+    chooser restored after.  Timed only."""
+    dev = x.device
+    cx, cp, cb = (torch.from_numpy(a).to(dev)
+                  for a in (cblocks, clsh.proj, clsh.bias))
+    chooser = ops.lsh_variant
+    out = []
+    try:
+        for label, a, p, b, rr in (("chunk", x, proj, bias, r),
+                                   ("cli", cx, cp, cb, clsh.cfg.r)):
+            (n, dim), nh = a.shape, p.shape[1]
+            row = []
+            for body in ("tf32x3", "fma"):
+                ops.lsh_variant = lambda n, dim, nh, body=body: body
+                ms = graph_ms(torch, lambda: ops.lsh_signature(a, p, b, rr),
+                              calls=5, replays=4)
+                _, _, b_ms, b_by = lsh_bound(n, dim, nh, body)
+                row.append(f"{body}={ms:.4f}ms (bound {b_ms:.4f}ms, {b_by})")
+            out.append(f"{label}[{n},{dim}]x{nh}: " + " ".join(row))
+    finally:
+        ops.lsh_variant = chooser
+    return "; ".join(out)
 
 
 def lm_signature_check(torch, ref, lsh, blocks):

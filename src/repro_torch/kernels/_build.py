@@ -38,14 +38,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 #: kernel -> (C entry point, argtypes); every entry returns a cudaError_t
 KERNELS = {
     "dedup_embedding": ("dedup_embedding_striped",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "dedup_matmul": ("dedup_matmul",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P]),
     "flash_attention": ("flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _F, _I, _I, _I, _P]),
-    "lsh_signature": ("lsh_signature", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
+    "lsh_signature": ("lsh_signature",
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -10,8 +10,8 @@ Each kernel keeps a launch count in :data:`LAUNCHES`, raised by one
 exactly where the wrapper launches the kernel, so a run can show that its
 hot path went through the kernel.  A kernel with two bodies also counts
 each body in :data:`VARIANT_LAUNCHES`; which body a call takes is decided
-by a pure function (:func:`matmul_plan`, :func:`flash_variant`) that the
-CPU tests reach.
+by a pure function (:func:`matmul_plan`, :func:`flash_variant`,
+:func:`lsh_variant`, :func:`gather_index_bits`) that the CPU tests reach.
 """
 from __future__ import annotations
 
@@ -23,19 +23,24 @@ import torch
 from . import _build, ref
 
 __all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "reset_launches", "MatmulPlan",
-           "matmul_plan", "flash_variant", "dedup_matmul", "dedup_embedding",
+           "matmul_plan", "flash_variant", "lsh_variant", "gather_index_bits",
+           "dedup_matmul", "dedup_embedding",
            "dedup_embedding_striped", "flash_attention", "lsh_signature",
            "ref"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNELS}
 #: kernel name -> body -> launches, for the kernels with two bodies:
-#: "wgmma" (bf16 tensor cores) and "fma" (fp32 FMAs on CUDA cores)
+#: "wgmma" (bf16 tensor cores), "tf32x3" (fp32 products as three tf32
+#: ones on the tensor cores), "fma" (fp32 FMAs on CUDA cores); the gather's
+#: 32- and 64-bit index instances
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "dedup_matmul": {"wgmma": 0, "fma": 0},
     "flash_attention": {"wgmma": 0, "fma": 0},
+    "lsh_signature": {"tf32x3": 0, "fma": 0},
+    "dedup_embedding": {"idx32": 0, "idx64": 0},
 }
-_VARIANTS = {"fma": 0, "wgmma": 1}
+_VARIANTS = {"fma": 0, "wgmma": 1, "tf32x3": 1}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -181,13 +186,20 @@ def dedup_matmul(x, pool, block_map, out_dtype=None):
 
 
 # --------------------------------------------------------- dedup_embedding --
+def gather_index_bits(pool_numel: int, out_numel: int) -> int:
+    """The width of the gather kernel's offsets: 32 when the slab and the
+    output both hold fewer than 2**31 elements, else 64."""
+    return 32 if max(pool_numel, out_numel) < 2 ** 31 else 64
+
+
 def dedup_embedding_striped(ids, pool, block_map, width=None):
     """Rows of a 2-D virtual tensor stored as ``(bh, bw)`` blocks.
 
     ids [B] int32; pool [n_blocks, bh, bw]; block_map [gh, gw] int32.
     Returns [B, width or gw*bw].  On CUDA every column stripe is gathered
     in ONE launch (the reference launches once per stripe and
-    concatenates); the result is bit-equal to :func:`ref.
+    concatenates), one warp an output row, with 32- or 64-bit offsets
+    (:func:`gather_index_bits`); the result is bit-equal to :func:`ref.
     dedup_embedding_striped`."""
     gh, gw = block_map.shape
     n, bh, bw = pool.shape
@@ -206,12 +218,13 @@ def dedup_embedding_striped(ids, pool, block_map, width=None):
     out = torch.empty((B, width), dtype=pool.dtype, device=pool.device)
     if B == 0:
         return out
+    bits = gather_index_bits(pool.numel(), out.numel())
     fn = _build.load("dedup_embedding")
     with torch.cuda.device(ids.device):
         err = fn(pool.data_ptr(), ids.data_ptr(), block_map.data_ptr(),
-                 out.data_ptr(), B, bh, bw, gw, width, pool.element_size(),
-                 _stream(ids.device))
-    _launched("dedup_embedding", err)
+                 out.data_ptr(), B, n, bh, bw, gw, width, pool.element_size(),
+                 bits, _stream(ids.device))
+    _launched("dedup_embedding", err, f"idx{bits}")
     return out
 
 
@@ -290,15 +303,31 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 
 # ----------------------------------------------------------- lsh_signature --
+def lsh_variant(n: int, dim: int, nh: int) -> str:
+    """The body of ``lsh_signature`` for blocks [n, dim] and nh hashes:
+    "tf32x3" (three tf32 products on the tensor cores, TMA) where TMA can
+    stride x and the workspace (dim % 4 == 0) and the epilogue can store
+    the hashes in int32 pairs (nh % 2 == 0); the body walks 64-hash tiles
+    and TMA zero-fills the last one, so nh is otherwise free.  "fma"
+    (IEEE fp32 FMAs on CUDA cores) otherwise."""
+    if dim % 4 == 0 and nh % 2 == 0 and nh > 0:
+        return "tf32x3"
+    return "fma"
+
+
 def lsh_signature(blocks, proj, bias, r: float):
     """blocks [n, dim] @ proj [dim, nh] + bias [nh], divided by r and
     floored -> int32 [n, nh]: the L2-LSH signatures of the index build.
 
     On CUDA all three inputs are contiguous float32 on one device; the
-    kernel sums in IEEE fp32 (no TF32), adds the bias and divides by r
-    rounded to fp32, as numpy does, and masks ragged n, dim and nh
-    itself.  It may differ from the plain version only at a bucket edge
-    (:func:`ref.lsh_edges`)."""
+    body comes from :func:`lsh_variant`.  "tf32x3" splits x and proj into
+    tf32 halves and sums three tensor-core products (about 2**-22 of each
+    term is dropped) through an fp32 workspace [2, nh, dim] allocated
+    here; TMA reads blocks, so it raises on a base address that is not
+    16-byte aligned.  "fma" sums in IEEE fp32.  Both add the bias and
+    divide by r rounded to fp32, as numpy does, and take ragged n, dim
+    and nh.  The result may differ from the plain version only at a
+    bucket edge (:func:`ref.lsh_edges`)."""
     if blocks.device.type == "cpu":
         return ref.lsh_signature(blocks, proj, bias, r)
     if blocks.device.type != "cuda":
@@ -319,10 +348,17 @@ def lsh_signature(blocks, proj, bias, r: float):
     out = torch.empty((n, nh), dtype=torch.int32, device=blocks.device)
     if n == 0 or nh == 0:
         return out
+    variant = lsh_variant(n, dim, nh)
+    ws = None
+    if variant == "tf32x3":
+        _check_tma("lsh_signature", (blocks,), (("a row of blocks", dim * 4),))
+        ws = torch.empty((2, nh, dim), dtype=torch.float32,
+                         device=blocks.device)
     fn = _build.load("lsh_signature")
     with torch.cuda.device(blocks.device):
         err = fn(blocks.data_ptr(), proj.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), n, dim, nh, float(r),
+                 out.data_ptr(), None if ws is None else ws.data_ptr(),
+                 n, dim, nh, float(r), _VARIANTS[variant],
                  _stream(blocks.device))
-    _launched("lsh_signature", err)
+    _launched("lsh_signature", err, variant)
     return out

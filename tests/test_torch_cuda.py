@@ -15,7 +15,8 @@ served logits 1e-5 against the host mode.  Attention: rtol 1e-4 / atol
 1e-5 in fp32 (the reference's flash tolerance), 2e-2 in bf16 (p and the
 result are each rounded once to bf16).  Each test of a kernel with two
 bodies asserts which body ran (``ops.VARIANT_LAUNCHES``).  LSH
-signatures: equal except hashes at a bucket edge (``ref.lsh_edges``);
+signatures: equal except hashes at a bucket edge (``ref.lsh_edges``),
+on both bodies (tf32x3 and fma), and the same bits from call to call;
 stores built on the card: block maps and pages equal to the host build.
 """
 import numpy as np
@@ -55,25 +56,58 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("gh,gw,bh,bw,width,B", [
-    (4, 5, 8, 16, 75, 13),          # ragged last stripe
-    (512, 5, 64, 64, 300, 512),     # word2vec d=300 in 64x64 blocks
-    (6, 3, 4, 8, 17, 40),           # odd width: narrow vectors
-])
-def test_striped_gather_bit_exact(cuda_device, gh, gw, bh, bw, width, B):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
+#: (dtype, gh, gw, bh, bw, width, B): a ragged last stripe; the word2vec
+#: d=300 slab in 64x64 blocks, also at a batch that is not a multiple of
+#: the 4 rows (warps) a block and in bf16; more than 32 stripes (the lanes
+#: loop over them); rows longer than 32 x 4 vectors; widths that leave
+#: 4-byte (fp32, odd width) and 2-byte (bf16, odd width) vectors
+GATHER_CASES = [
+    (torch.float32, 4, 5, 8, 16, 75, 13),
+    (torch.float32, 512, 5, 64, 64, 300, 512),
+    (torch.float32, 512, 5, 64, 64, 300, 511),
+    (torch.bfloat16, 512, 5, 64, 64, 300, 512),
+    (torch.float32, 3, 40, 8, 16, 637, 21),
+    (torch.float32, 2, 3, 4, 256, 700, 9),
+    (torch.float32, 6, 3, 4, 8, 17, 40),
+    (torch.bfloat16, 6, 3, 4, 8, 17, 40),
+    (torch.bfloat16, 5, 34, 4, 6, 201, 30),
+]
+
+
+def _gather_check(device, dtype, gh, gw, bh, bw, width, B, bits):
+    g = torch.Generator(device=device).manual_seed(0)
     nblk = 11
-    pool = torch.randn(nblk, bh, bw, device=cuda_device, generator=g)
+    pool = torch.randn(nblk, bh, bw, device=device, generator=g).to(dtype)
     bmap = torch.randint(0, nblk, (gh, gw), dtype=torch.int32,
-                         device=cuda_device, generator=g)
-    ids = torch.randint(0, gh * bh, (B,), dtype=torch.int32,
-                        device=cuda_device, generator=g)
+                         device=device, generator=g)
+    ids = torch.randint(0, gh * bh, (B,), dtype=torch.int32, device=device,
+                        generator=g)
     n0 = ops.LAUNCHES["dedup_embedding"]
+    v0 = dict(ops.VARIANT_LAUNCHES["dedup_embedding"])
     got = ops.dedup_embedding_striped(ids, pool, bmap, width=width)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["dedup_embedding"] == n0 + 1
+    now = ops.VARIANT_LAUNCHES["dedup_embedding"]
+    assert {b: now[b] - v0[b] for b in now} == \
+        {b: int(b == f"idx{bits}") for b in now}
+    assert got.dtype == dtype and got.shape == (B, width)
     assert torch.equal(got, ref.dedup_embedding_striped(ids, pool, bmap,
                                                         width=width))
+
+
+@pytest.mark.parametrize("dtype,gh,gw,bh,bw,width,B", GATHER_CASES)
+def test_striped_gather_bit_exact(cuda_device, dtype, gh, gw, bh, bw, width,
+                                  B):
+    _gather_check(cuda_device, dtype, gh, gw, bh, bw, width, B, 32)
+
+
+@pytest.mark.parametrize("dtype,gh,gw,bh,bw,width,B", GATHER_CASES[1:5])
+def test_striped_gather_64bit_offsets(cuda_device, monkeypatch, dtype, gh,
+                                      gw, bh, bw, width, B):
+    """The 64-bit index instance (taken by slabs of 2**31 elements or
+    more; forced here) moves the same bits."""
+    monkeypatch.setattr(ops, "gather_index_bits", lambda *a: 64)
+    _gather_check(cuda_device, dtype, gh, gw, bh, bw, width, B, 64)
 
 
 def _matmul_inputs(device, dtype, M, bk, bn, nkb, nnb, nd, seed=1):
@@ -343,31 +377,79 @@ def test_lm_engine_cuda_mode_raises_without_room(cuda_device):
 #: r = 0.25; 32x32, 16 hashes, r = 4), and ragged n, dim and nh
 LSH_SHAPES = [(16, 64, 16, 2.0), (33, 100, 24, 4.0), (128, 512, 128, 1.0),
               (256, 4096, 64, 0.25), (256, 1024, 16, 4.0),
-              (1000, 4096, 64, 0.25), (65, 1000, 70, 0.7)]
+              (1000, 4096, 64, 0.25), (65, 1000, 70, 0.7),
+              (50, 256, 264, 1.0), (40, 36, 6, 2.0), (40, 1001, 16, 1.0),
+              (30, 64, 9, 2.0)]
 
 
-@pytest.mark.parametrize("n,dim,nh,r", LSH_SHAPES)
-def test_lsh_signature_matches_plain(cuda_device, n, dim, nh, r):
-    """Equal to the plain version and to numpy except hashes whose exact
-    value lies within 1e-4 of a bucket edge (ref.lsh_edges): the floor
-    turns a last-bit difference of summation order into a bucket."""
-    rng = np.random.default_rng(3)
+def _lsh_inputs(device, n, dim, nh, r, seed=3):
+    rng = np.random.default_rng(seed)
     scale = 0.02 if dim >= 1024 else 1.0
     blocks = (rng.standard_normal((n, dim)) * scale).astype(np.float32)
     proj = rng.standard_normal((dim, nh)).astype(np.float32)
     bias = (rng.random(nh) * r).astype(np.float32)
-    x, p, b = (torch.from_numpy(a).to(cuda_device)
-               for a in (blocks, proj, bias))
+    return blocks, proj, bias, [torch.from_numpy(a).to(device)
+                                for a in (blocks, proj, bias)]
+
+
+def _lsh_check(device, n, dim, nh, r, body):
+    blocks, proj, bias, (x, p, b) = _lsh_inputs(device, n, dim, nh, r)
     n0 = ops.LAUNCHES["lsh_signature"]
+    v0 = dict(ops.VARIANT_LAUNCHES["lsh_signature"])
     got = ops.lsh_signature(x, p, b, r)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["lsh_signature"] == n0 + 1
+    now = ops.VARIANT_LAUNCHES["lsh_signature"]
+    assert {k: now[k] - v0[k] for k in now} == \
+        {k: int(k == body) for k in now}
     assert got.dtype == torch.int32 and got.shape == (n, nh)
     edges = ref.lsh_edges(x, p, b, r).cpu().numpy()
     got = got.cpu().numpy()
     for want in (ref.lsh_signature(x, p, b, r).cpu().numpy(),
                  np.floor((blocks @ proj + bias) / r).astype(np.int32)):
         assert not ((got != want) & ~edges).any()
+
+
+@pytest.mark.parametrize("n,dim,nh,r", LSH_SHAPES)
+def test_lsh_signature_matches_plain(cuda_device, n, dim, nh, r):
+    """Equal to the plain version and to numpy except hashes whose exact
+    value lies within 1e-4 of a bucket edge (ref.lsh_edges): the floor
+    turns a last-bit difference of summation order into a bucket.  The
+    body is the one ops.lsh_variant picks: tf32x3 but at dim 1001 and
+    nh 9 (nh 70 and 264 end in a ragged 64-hash tile, nh 6 fills one
+    partly)."""
+    _lsh_check(cuda_device, n, dim, nh, r, ops.lsh_variant(n, dim, nh))
+
+
+@pytest.mark.parametrize("n,dim,nh,r", LSH_SHAPES)
+def test_lsh_signature_on_the_fma_body(cuda_device, monkeypatch, n, dim, nh,
+                                       r):
+    """The CUDA-core body (forced at every shape) under the same
+    criterion."""
+    monkeypatch.setattr(ops, "lsh_variant", lambda n, dim, nh: "fma")
+    _lsh_check(cuda_device, n, dim, nh, r, "fma")
+
+
+def test_lsh_signature_tf32x3_is_deterministic(cuda_device):
+    """Two tf32x3 calls at the LM stores' width give the same bits."""
+    *_, (x, p, b) = _lsh_inputs(cuda_device, 1000, 4096, 64, 0.25)
+    assert ops.lsh_variant(1000, 4096, 64) == "tf32x3"
+    first = ops.lsh_signature(x, p, b, 0.25)
+    second = ops.lsh_signature(x, p, b, 0.25)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_lsh_signature_refuses_a_misaligned_base(cuda_device):
+    """TMA reads the blocks: a base address that is not 16-byte aligned
+    raises on the tf32x3 body instead of launching."""
+    *_, (x, p, b) = _lsh_inputs(cuda_device, 64, 256, 16, 1.0)
+    shifted = torch.empty(x.numel() + 1, device=cuda_device)[1:].view_as(x)
+    shifted.copy_(x)
+    n0 = ops.LAUNCHES["lsh_signature"]
+    with pytest.raises(ValueError, match="aligned"):
+        ops.lsh_signature(shifted, p, b, 1.0)
+    assert ops.LAUNCHES["lsh_signature"] == n0
 
 
 def test_dedup_db_cuda_build_matches_host(cuda_device, tmp_path):

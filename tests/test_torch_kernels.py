@@ -148,6 +148,9 @@ def test_cpu_wrappers_launch_no_kernel():
 
 def test_reset_launches_clears_the_body_counts():
     ops.VARIANT_LAUNCHES["flash_attention"]["wgmma"] += 3
+    ops.VARIANT_LAUNCHES["lsh_signature"]["tf32x3"] += 2
+    ops.VARIANT_LAUNCHES["lsh_signature"]["fma"] += 1
+    ops.VARIANT_LAUNCHES["dedup_embedding"]["idx64"] += 1
     ops.LAUNCHES["dedup_matmul"] += 1
     ops.reset_launches()
     assert set(ops.LAUNCHES.values()) == {0}
@@ -220,6 +223,34 @@ def test_flash_variant(dtype, hd, body):
     of 16 in [64, 256]; fp32 keeps the CUDA-core body (its 1e-4
     tolerance), and so do the other bf16 head dims."""
     assert ops.flash_variant(dtype, hd) == body
+
+
+@pytest.mark.parametrize("n,dim,nh,body", [
+    (16, 64, 16, "tf32x3"), (33, 100, 24, "tf32x3"), (128, 512, 128, "tf32x3"),
+    (256, 4096, 64, "tf32x3"), (256, 1024, 16, "tf32x3"),
+    (1000, 4096, 64, "tf32x3"), (65, 1000, 70, "tf32x3"),
+    (50, 256, 264, "tf32x3"), (40, 36, 6, "tf32x3"), (40, 1001, 16, "fma"),
+    (30, 64, 9, "fma"),
+    (8, 4098, 64, "fma"), (8, 4096, 264, "tf32x3"), (8, 4096, 256, "tf32x3"),
+    (8, 36, 4, "tf32x3"),
+])
+def test_lsh_variant(n, dim, nh, body):
+    """The tensor-core body where TMA can stride the blocks and the
+    workspace (dim % 4 == 0) and the epilogue stores int32 pairs (nh % 2
+    == 0), at any number of 64-hash tiles; the CUDA-core body elsewhere.
+    The first eleven are the card tests' LSH_SHAPES: dim 1001 and nh 9
+    go to fma."""
+    assert ops.lsh_variant(n, dim, nh) == body
+
+
+@pytest.mark.parametrize("pool_numel,out_numel,bits", [
+    (2568 * 64 * 64, 512 * 300, 32), (2 ** 31 - 1, 2 ** 31 - 1, 32),
+    (2 ** 31, 10, 64), (10, 2 ** 31, 64), (3 * 2 ** 31, 2 ** 33, 64),
+])
+def test_gather_index_bits(pool_numel, out_numel, bits):
+    """32-bit offsets while the slab and the output both hold fewer than
+    2**31 elements."""
+    assert ops.gather_index_bits(pool_numel, out_numel) == bits
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -90,6 +90,45 @@ def test_plain_signature_matches_the_jax_kernel(n, dim, nh, r):
     assert np.array_equal(ops.lsh_signature(*args, r).numpy(), got)
 
 
+def _tf32_halves(a):
+    """The tf32x3 body's split of fp32 values: hi = a with its low 13
+    mantissa bits cleared, lo = a - hi (exact) rounded to tf32, to
+    nearest with ties away from zero (``cvt.rna.tf32.f32``)."""
+    hi = (a.view(torch.int32) & -8192).view(torch.float32)
+    lo = a - hi
+    lo = ((lo.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+    return hi, lo
+
+
+#: the reference's three shapes and an LM-like chunk row (x std 0.02,
+#: 64 hashes, r = 0.25), as the tf32x3 body takes them
+TF32X3_SHAPES = SHAPES[:3] + [(512, 4096, 64, 0.25)]
+
+
+@pytest.mark.parametrize("n,dim,nh,r", TF32X3_SHAPES)
+def test_tf32x3_split_agrees_with_the_jax_kernel(n, dim, nh, r):
+    """Plain-torch emulation of the tf32x3 body's arithmetic:
+    x_hi P_hi + x_hi P_lo + x_lo P_hi in fp32, then the bias, the IEEE
+    division by r and the floor.  Held against the Pallas kernel
+    (interpret mode) and numpy off the 1e-4 bucket edges; and the
+    split's own error (taken in fp64, against the exact product) stays
+    under a quarter of that tolerance, in buckets."""
+    blocks, proj, bias = _inputs(n, dim, nh, r)
+    x, p, b = (torch.from_numpy(a) for a in (blocks, proj, bias))
+    (xh, xl), (ph, pl) = _tf32_halves(x), _tf32_halves(p)
+    split = xh @ ph + xh @ pl + xl @ ph
+    got = torch.floor((split + b) / r).to(torch.int32).numpy()
+    edges = _edges(blocks, proj, bias, r)
+    jargs = [jnp.asarray(a) for a in (blocks, proj, bias)]
+    _assert_agree(got, np.asarray(jops.lsh_signature(*jargs, r=r)), edges)
+    _assert_agree(got, np.floor((blocks @ proj + bias) / r).astype(np.int32),
+                  edges)
+    d = [t.double() for t in (xh, xl, ph, pl, x, p)]
+    exact_split = d[0] @ d[2] + d[0] @ d[3] + d[1] @ d[2]
+    err = float((exact_split - d[4] @ d[5]).abs().max()) / r
+    assert err < ref.LSH_EDGE_TOL / 4, err
+
+
 @pytest.mark.parametrize("block,cfg", [
     ((32, 32), dict(num_bands=8, rows_per_band=2, r=4.0,
                     collision_threshold=6)),          # the CLI's LM store
