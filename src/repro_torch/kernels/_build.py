@@ -44,7 +44,7 @@ KERNELS = {
                       _I, _P]),
     "flash_attention": ("flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _I, _I, _I, _P]),
+                         _F, _F, _I, _I, _I, _I, _P]),
     "lsh_signature": ("lsh_signature",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
 }

@@ -10,7 +10,9 @@
 // and the accumulator stay in fp32; the softcap (softcap * tanh(s / softcap))
 // is applied before the mask; masked scores are the finite -2e38, so a row
 // whose every key is masked ends with p = 1 for each key, i.e. the mean of v
-// (no NaN); the result is acc / max(l, 1e-30), written in q's dtype.  Keys
+// (no NaN); the result is acc / max(l, 1e-30), written in fp32 or bf16 as
+// the caller asks (the model's prefill asks fp32: the reference's attend
+// returns its fp32 accumulator and feeds it to an fp32 wo product).  Keys
 // past Skv in the ragged last tile do not exist for the plain version: they
 // get -inf (p = 0), so Skv needs no padding.  Rows past Sq are computed and
 // not stored.  A block skips key tiles that the causal or window mask hides
@@ -43,8 +45,11 @@
 //    exponentials are ex2 of log2-scaled scores; a warp whose rows see the
 //    whole tile skips the mask), and O += P V with P rounded to bf16 in
 //    registers as the A operand and the v tile as an MN-major B (transpose
-//    bit) of wgmma m64nHDk16.  O is normalised, staged in the q buffer and
-//    written by TMA.  Two CTAs share an SM up to head_dim 128, so one's
+//    bit) of wgmma m64nHDk16.  O is normalised; a bf16 O is staged in the q
+//    buffer and written by TMA, an fp32 O (twice the bytes of that buffer)
+//    is stored straight from the accumulator registers, each thread two
+//    adjacent fp32 of a row at a time (8-byte stores, a quad of threads
+//    covering 32 contiguous bytes).  Two CTAs share an SM up to head_dim 128, so one's
 //    softmax overlaps the other's products.  Measured slower on the H100
 //    and not kept: a software pipeline inside one warpgroup (S_i issued
 //    before P_{i-1} V), persistent CTAs that prefetch the next tile's q, a
@@ -57,9 +62,10 @@
 //    wgmma descriptors name; head_dim 128 and 256 take 2 and 4 boxes a tile,
 //    and widths between are padded with zeros by TMA.  GQA is the head
 //    coordinate h / (H / K); positions past Sq or Skv arrive as zeros.
-//    What is new against the reference: the scale multiplies the fp32
-//    scores ((q k) scale, not (q scale) k) and P is rounded to bf16 before
-//    the second product, as the port's plain attend in torch mode does.  A
+//    The scale multiplies the fp32 scores ((q k) scale); the model's
+//    prefill passes q already scaled in fp32 and rounded to bf16 with
+//    scale = 1, which is the reference's (q scale) k.  P is rounded to bf16
+//    before the second product, as the reference's attend does.  A
 //    consumer thread needs at most about 200 registers (O is 128 of them at
 //    head_dim 256), which a CTA of 160 or 288 threads has without
 //    setmaxnreg.
@@ -79,6 +85,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "hopper.cuh"
 
@@ -120,10 +127,10 @@ constexpr size_t smem_bytes() {
 template <typename T, int HDP>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       int64_t Sq, int64_t Skv, int64_t H, int64_t K,
-                       int64_t hd, int causal, int64_t window, float softcap,
-                       float scale, int skip) {
+                       const T* __restrict__ v, void* __restrict__ out,
+                       int out_f32, int64_t Sq, int64_t Skv, int64_t H,
+                       int64_t K, int64_t hd, int causal, int64_t window,
+                       float softcap, float scale, int skip) {
   constexpr int QK = HDP + 1;
   constexpr int PS = BKV + 1;
   constexpr int OPT = HDP / 16;             // output columns a thread
@@ -247,20 +254,24 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t qp = q0 + ty * RPT + r;
     if (qp >= Sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    T* ob = out + (b * Sq + qp) * qstride + h * hd;
+    const int64_t ob = (b * Sq + qp) * qstride + h * hd;
 #pragma unroll
     for (int c = 0; c < OPT; ++c) {
       const int d = tx + 16 * c;
-      if (d < hd) from_f32(ob + d, o[r][c] / denom);
+      if (d >= hd) continue;
+      if (out_f32)
+        from_f32(static_cast<float*>(out) + ob + d, o[r][c] / denom);
+      else
+        from_f32(static_cast<__nv_bfloat16*>(out) + ob + d, o[r][c] / denom);
     }
   }
 }
 
 template <typename T, int HDP>
-int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
-           int64_t Sq, int64_t Skv, int64_t H, int64_t K, int64_t hd,
-           int causal, int64_t window, float softcap, float scale, int skip,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           int out_f32, int64_t B, int64_t Sq, int64_t Skv, int64_t H,
+           int64_t K, int64_t hd, int causal, int64_t window, float softcap,
+           float scale, int skip, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDP>();
   // opt in once per instantiation (not again inside a CUDA graph capture)
   static bool opted_in = false;
@@ -274,23 +285,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
   const dim3 grid((unsigned)(B * H), (unsigned)((Sq + BQ - 1) / BQ));
   flash_attention_kernel<T, HDP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, K, hd,
-      causal, window, softcap, scale, skip);
+      static_cast<const T*>(v), out, out_f32, Sq, Skv, H, K, hd, causal,
+      window, softcap, scale, skip);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* out,
-                int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t K,
-                int64_t hd, int causal, int64_t window, float softcap,
-                float scale, int skip, cudaStream_t s) {
+                int out_f32, int64_t B, int64_t Sq, int64_t Skv, int64_t H,
+                int64_t K, int64_t hd, int causal, int64_t window,
+                float softcap, float scale, int skip, cudaStream_t s) {
   if (hd <= 32)
-    return launch<T, 32>(q, k, v, out, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
+    return launch<T, 32>(q, k, v, out, out_f32, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, out, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
+    return launch<T, 64>(q, k, v, out, out_f32, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, out, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
-  return launch<T, 256>(q, k, v, out, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
+    return launch<T, 128>(q, k, v, out, out_f32, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
+  return launch<T, 256>(q, k, v, out, out_f32, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
 }
 
 // ------------------------------------------------- tensor-core body --
@@ -436,8 +447,9 @@ __global__ void __launch_bounds__(WgTile<HDP>::THREADS, WgTile<HDP>::MIN_BLOCKS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   const __grid_constant__ CUtensorMap omap, int64_t Sq,
-                   int64_t Skv, int64_t H, int64_t K, int causal,
+                   const __grid_constant__ CUtensorMap omap,
+                   float* __restrict__ out32, int64_t Sq, int64_t Skv,
+                   int64_t H, int64_t K, int64_t hd, int causal,
                    int64_t window, float softcap, float scale2, int skip,
                    int64_t group) {
   using namespace hopper;
@@ -584,11 +596,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // out = O / max(l, 1e-30), one reciprocal a row (a last-bit rounding
-  // against a division, far inside the bf16 result), staged in bf16 in
-  // this warpgroup's q buffer (free after its last S = Q K^T) in the
-  // layout TMA reads and writes (128-byte swizzle: the 16-byte chunk j of
-  // row r sits at chunk j ^ (r % 8)), then written by TMA, which drops the
-  // rows past Sq and the columns past hd
+  // against a division)
   const int r_lo = acc_row(t, 0);
   float inv[2];
 #pragma unroll
@@ -598,6 +606,25 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     u += __shfl_xor_sync(0xffffffffu, u, 2);
     inv[rr] = 1.f / fmaxf(u, 1e-30f);
   }
+  if (out32 != nullptr) {
+    // fp32 O: from the registers to device memory, two adjacent columns a
+    // store (hd % 16 == 0, so a pair never straddles hd); rows past Sq and
+    // columns past hd are not stored
+#pragma unroll
+    for (int e = 0; e < HDP / 2; e += 2) {
+      const int rr = (e >> 1) & 1;
+      const int64_t qp = wq0 + r_lo + 8 * rr;
+      const int col = acc_col(t, e);
+      if (qp < Sq && col < hd)
+        *reinterpret_cast<float2*>(out32 + ((b * Sq + qp) * H + h) * hd + col) =
+            make_float2(o[e] * inv[rr], o[e + 1] * inv[rr]);
+    }
+    return;
+  }
+  // bf16 O: staged in this warpgroup's q buffer (free after its last
+  // S = Q K^T) in the layout TMA reads and writes (128-byte swizzle: the
+  // 16-byte chunk j of row r sits at chunk j ^ (r % 8)), then written by
+  // TMA, which drops the rows past Sq and the columns past hd
   uint8_t* Ow = Qs + wg * TL::TB;
 #pragma unroll
   for (int e = 0; e < HDP / 2; e += 2) {
@@ -619,9 +646,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int HDP>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t K,
-                 int64_t hd, int causal, int64_t window, float softcap,
-                 float scale, int skip, cudaStream_t stream) {
+                 int out_f32, int64_t B, int64_t Sq, int64_t Skv, int64_t H,
+                 int64_t K, int64_t hd, int causal, int64_t window,
+                 float softcap, float scale, int skip, cudaStream_t stream) {
   using TL = WgTile<HDP>;
   const cuuint64_t es = 2, D = (cuuint64_t)hd;
   const cuuint64_t qdims[4] = {D, (cuuint64_t)H, (cuuint64_t)Sq, (cuuint64_t)B};
@@ -630,12 +657,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const cuuint64_t kstr[3] = {D * es, K * D * es, Skv * K * D * es};
   const cuuint32_t box[4] = {64, 1, 64, 1};
   CUtensorMap qmap, kmap, vmap, omap;
+  memset(&omap, 0, sizeof(omap));          // unused by an fp32 O
   const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
   int err = hopper::encode_map(&qmap, bf, 4, q, qdims, qstr, box, sw);
   if (!err) err = hopper::encode_map(&kmap, bf, 4, k, kdims, kstr, box, sw);
   if (!err) err = hopper::encode_map(&vmap, bf, 4, v, kdims, kstr, box, sw);
-  if (!err) err = hopper::encode_map(&omap, bf, 4, out, qdims, qstr, box, sw);
+  if (!err && !out_f32)
+    err = hopper::encode_map(&omap, bf, 4, out, qdims, qstr, box, sw);
   if (err) return err;
   static bool opted_in = false;
   err = hopper::opt_in_smem(flash_wgmma_kernel<HDP>, TL::smem, &opted_in);
@@ -649,26 +678,28 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const int64_t ntq = (Sq + TL::BQC - 1) / TL::BQC;
   flash_wgmma_kernel<HDP><<<(unsigned)(ntq * B * H), TL::THREADS, TL::smem,
                             stream>>>(
-      qmap, kmap, vmap, omap, Sq, Skv, H, K, causal, window, softcap,
-      scale * kLog2e, skip, group);
+      qmap, kmap, vmap, omap, out_f32 ? static_cast<float*>(out) : nullptr,
+      Sq, Skv, H, K, hd, causal, window, softcap, scale * kLog2e, skip,
+      group);
   return (int)cudaGetLastError();
 }
 
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
-                   int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t K,
-                   int64_t hd, int causal, int64_t window, float softcap,
-                   float scale, int skip, cudaStream_t s) {
+                   int out_f32, int64_t B, int64_t Sq, int64_t Skv, int64_t H,
+                   int64_t K, int64_t hd, int causal, int64_t window,
+                   float softcap, float scale, int skip, cudaStream_t s) {
   if (hd <= 64)
-    return launch_wgmma<64>(q, k, v, out, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
+    return launch_wgmma<64>(q, k, v, out, out_f32, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
   if (hd <= 128)
-    return launch_wgmma<128>(q, k, v, out, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
-  return launch_wgmma<256>(q, k, v, out, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
+    return launch_wgmma<128>(q, k, v, out, out_f32, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
+  return launch_wgmma<256>(q, k, v, out, out_f32, B, Sq, Skv, H, K, hd, causal, window, softcap, scale, skip, s);
 }
 
 }  // namespace
 
 // q: [B, Sq, H, hd]; k, v: [B, Skv, K, hd]; out: [B, Sq, H, hd]; all
-// contiguous and of one dtype: 0 = float32, 1 = bfloat16.  H % K == 0,
+// contiguous.  q, k and v share `dtype` and out has `out_dtype`: 0 =
+// float32, 1 = bfloat16 (either for either).  H % K == 0,
 // 0 < hd <= 256.  window = 0 means global; softcap = 0 means none.
 // skip = 1 lets a block skip key tiles its mask hides entirely (exact when
 // every row has a visible key).  variant: 0 = the CUDA-core body, 1 = the
@@ -679,22 +710,25 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int64_t H, int64_t K, int64_t hd,
                                int64_t causal, int64_t window, float softcap,
                                float scale, int64_t skip, int64_t dtype,
-                               int64_t variant, void* stream) {
+                               int64_t out_dtype, int64_t variant,
+                               void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return (int)cudaGetLastError();
   if (Skv <= 0 || K <= 0 || H % K != 0 || hd <= 0 || hd > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c = causal != 0, sk = skip != 0;
+  if (out_dtype != 0 && out_dtype != 1) return (int)cudaErrorInvalidValue;
+  const int of32 = out_dtype == 0;
   if (variant == 1) {
     if (dtype != 1 || hd % 16 != 0 || hd < 64 ||
         B * H * ((Sq + 63) / 64) > 0x7fffffff)
       return (int)cudaErrorInvalidValue;
-    return dispatch_wgmma(q, k, v, out, B, Sq, Skv, H, K, hd, c, window, softcap, scale, sk, s);
+    return dispatch_wgmma(q, k, v, out, of32, B, Sq, Skv, H, K, hd, c, window, softcap, scale, sk, s);
   }
   if (variant != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, out, B, Sq, Skv, H, K, hd, c, window, softcap, scale, sk, s);
+    return dispatch_hd<float>(q, k, v, out, of32, B, Sq, Skv, H, K, hd, c, window, softcap, scale, sk, s);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, K, hd, c, window, softcap, scale, sk, s);
+    return dispatch_hd<__nv_bfloat16>(q, k, v, out, of32, B, Sq, Skv, H, K, hd, c, window, softcap, scale, sk, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -251,18 +251,21 @@ def flash_variant(dtype: torch.dtype, hd: int) -> str:
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    scale=None):
+                    scale=None, out_dtype=None):
     """q [B, Sq, H, hd]; k, v [B, Skv, K, hd] (GQA, H % K == 0) ->
-    [B, Sq, H, hd] in q's dtype.
+    [B, Sq, H, hd] in ``out_dtype`` (default q's dtype).
 
     On CUDA the kernel masks ragged Sq and Skv itself (no padding pass)
-    and takes float32 or bfloat16 for all three tensors, hd <= 256; the
-    body comes from :func:`flash_variant`.  It skips key tiles the mask
-    hides entirely unless the call can produce a row with no visible key,
-    which then keeps the plain version's mean of v."""
+    and takes float32 or bfloat16 for all three inputs, hd <= 256; the
+    body comes from :func:`flash_variant`.  Either body writes its fp32
+    result as float32 or bfloat16 (``out_dtype``), rounding it at most
+    once.  It skips key tiles the mask hides entirely unless the call can
+    produce a row with no visible key, which then keeps the plain
+    version's mean of v."""
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale)
+                                   softcap=softcap, scale=scale,
+                                   out_dtype=out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -281,14 +284,18 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
         raise ValueError(f"flash_attention: q {q.dtype}, k {k.dtype}, v "
                          f"{v.dtype}; the kernel takes one dtype, float32 "
                          "or bfloat16")
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: out_dtype {out_dtype}; the "
+                         "kernel writes float32 or bfloat16")
     _check_cuda("flash_attention", q, k, v)
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     if B == 0 or Sq == 0:
         return out
     scale = hd ** -0.5 if scale is None else float(scale)
     variant = flash_variant(q.dtype, hd)
     if variant == "wgmma":
-        _check_tma("flash_attention", (q, k, v), ())
+        _check_tma("flash_attention", (q, k, v, out), ())
     # a row with no visible key exists only if some query sits a whole
     # window past the last key; only then must every tile be visited
     skip = not (window and Sq >= Skv + window)
@@ -297,7 +304,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Sq, Skv, H, Kh, hd, int(bool(causal)), int(window),
                  float(softcap), scale, int(skip), _DTYPES[q.dtype],
-                 _VARIANTS[variant], _stream(q.device))
+                 _DTYPES[out_dtype], _VARIANTS[variant], _stream(q.device))
     _launched("flash_attention", err, variant)
     return out
 

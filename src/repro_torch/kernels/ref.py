@@ -65,11 +65,13 @@ def dedup_embedding_striped(ids, pool, block_map, width=None):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    scale=None):
-    """q [B, Sq, H, hd]; k, v [B, Skv, K, hd] -> [B, Sq, H, hd].
+                    scale=None, out_dtype=None):
+    """q [B, Sq, H, hd]; k, v [B, Skv, K, hd] -> [B, Sq, H, hd] in
+    ``out_dtype`` (default q's dtype).
 
     fp32 throughout, with the finite ``-2e38`` mask: a row whose every
-    key is masked gets ``p = 1`` for each key, i.e. the mean of v."""
+    key is masked gets ``p = 1`` for each key, i.e. the mean of v.  The
+    fp32 result is cast once, to ``out_dtype``."""
     B, Sq, H, hd = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
     G = H // Kh
@@ -88,7 +90,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     s = torch.where(m[None, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(F32))
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    return o.reshape(B, Sq, H, hd).to(out_dtype or q.dtype)
 
 
 #: a hash whose exact value lies closer than this to a bucket edge may floor

@@ -20,6 +20,15 @@ with the CUDA kernels and needs an NVIDIA GPU of capability (9, 0);
 page pool at every model switch, and prefill attention runs the
 ``flash_attention`` kernel on the card.
 
+``--traffic SPEC`` replaces the pre-built batches with an open-loop
+request stream (Poisson arrivals, Zipf model popularity) served through
+the ``ServingFrontend`` (SLO-driven batch formation, cost-based
+admission, shedding) on a virtual clock, and prints a ``[traffic]``
+line.  ``--snapshot PATH`` persists the frontend's state around every
+dispatch and resumes from PATH when it exists; ``--kill-after N`` stops
+after N dispatches (warm restart, DESIGN.md §11).  ``--trace`` and
+``--report-json`` export the request-path trace and a metrics snapshot.
+
 The store's Alg.-1 index build signs blocks in ``--index-mode``: by
 default on the card (the ``lsh_signature`` kernel) with ``--backend
 device`` and on the host (the reference's numpy routine) with
@@ -32,10 +41,15 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --store-url sqlite:////tmp/m.db
   PYTHONPATH=src python -m repro_torch.launch.serve --engine lm --batches 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --backend numpy \
+      --traffic rate=400,requests=40,slo_ms=200,max_batch=4 \
+      --snapshot /tmp/fe.json --kill-after 3
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 
 import numpy as np
 
@@ -46,8 +60,10 @@ from ..data.pipeline import SyntheticTextTask
 from ..serving.device_pool import KERNEL_MODES
 from ..serving.engine import (EmbeddingServingEngine, LMServingEngine,
                               ServeStats, StorageModel, WeightServer)
+from ..serving.frontend import ServingFrontend
 from ..serving.prefetch import Prefetcher
 from ..serving.scheduler import SCHEDULERS
+from ..serving.traffic import OpenLoopTraffic, TrafficSpec
 
 
 def build_store(task: SyntheticTextTask, num_models: int,
@@ -99,6 +115,53 @@ def build_lm_store(cfg, num_models: int, seed: int = 0,
         delta = 0.0 if v == 0 else 1e-5 * v
         store.register(name, {k: t + delta for k, t in lm.tensors.items()})
     return store, names, lm
+
+
+# Audit map: every ServeStats field -> (report tag, key on that line).
+# tests/test_torch_obs.py pins this map against dataclasses.fields
+# (ServeStats), so growing a counter without deciding its report line
+# fails, and no field is printed from two lines at once.  The [shards]
+# line comes with the sharded slab; this CLI has no --shards yet.
+REPORT_FIELDS = {
+    "requests": ("serve", "requests="),
+    "batches": ("serve", "batches="),
+    "fetch_seconds": ("serve", "fetch="),
+    "compute_seconds": ("serve", "compute="),
+    "prefetch_seconds": ("serve", "prefetch="),
+    "pages_fetched": ("serve", "pages="),
+    "timeline_seconds": ("serve", "makespan="),
+    "overlapped": ("serve", "overlap="),
+    "latencies": ("serve", "p50=/p99="),
+    "fetch_latencies": ("serve", "fetch_p99="),
+    "device_batches": ("device", "device_batches="),
+    "dense_fallbacks": ("device", "dense_fallbacks="),
+    "transfer_seconds": ("transfer", "moved="),
+    "transfer_pages": ("transfer", "pages="),
+    "transfer_groups": ("transfer", "ops="),
+    "transfer_bytes": ("transfer", "bytes="),
+    "transfer_overlapped_bytes": ("transfer", "overlap="),
+    "group_sizes": ("transfer", "mean_group="),
+    "prefetch_pages": ("prefetch", "pages="),
+    "borrow_pages": ("shards", "borrows="),
+    "borrow_seconds": ("shards", "borrow="),
+    "borrow_mirror_hits": ("shards", "mirror="),
+    "borrow_store_faults": ("shards", "owner_faults="),
+    "borrow_coalesced": ("shards", "coalesced="),
+    "shard_batches": ("shards", "batches_per_shard="),
+    "retries": ("faults", "retries="),
+    "corrupt_detected": ("faults", "corrupt="),
+    "refetch_pages": ("faults", "refetch="),
+    "failovers": ("faults", "failovers="),
+    "degraded_batches": ("faults", "degraded="),
+    "fault_backoff_seconds": ("faults", "backoff="),
+    "offered_requests": ("traffic", "offered="),
+    "shed_requests": ("traffic", "shed="),
+    "slo_misses": ("traffic", "slo_miss="),
+    "queue_latencies": ("traffic", "queue_p50="),
+    "service_latencies": ("traffic", "service_p50="),
+    "request_latencies": ("traffic", "served=/p50=/p99="),
+    "readmitted_requests": ("traffic", "readmitted="),
+}
 
 
 def _print_index(store: DeviceModelStore) -> None:
@@ -167,6 +230,134 @@ def _print_stats(args, stats: ServeStats, server: WeightServer,
           f"makespan={stats.makespan_seconds*1e3:.1f}ms " + lat)
 
 
+def _print_traffic(spec: TrafficSpec, fe: ServingFrontend,
+                   stats: ServeStats) -> None:
+    """The ``[traffic]`` report line: request-level latency/goodput for
+    an open-loop run (virtual-clock quantities throughout)."""
+    served = len(stats.request_latencies)
+    lat = (f"p50={stats.request_percentile(50)*1e3:.2f}ms "
+           f"p99={stats.request_percentile(99)*1e3:.2f}ms") if served \
+        else "p50=n/a p99=n/a"
+    if served:
+        q50 = float(np.percentile(stats.queue_latencies, 50)) * 1e3
+        s50 = float(np.percentile(stats.service_latencies, 50)) * 1e3
+        qs = f"queue_p50={q50:.2f}ms service_p50={s50:.2f}ms "
+    else:
+        qs = "queue_p50=n/a service_p50=n/a "
+    print(f"[traffic] policy={fe.policy} rate={spec.rate:g}/s "
+          f"zipf={spec.zipf:g} slo={spec.slo_ms:g}ms seed={spec.seed} "
+          f"offered={stats.offered_requests} served={served} "
+          f"shed={stats.shed_requests} slo_miss={stats.slo_misses} "
+          f"readmitted={stats.readmitted_requests} "
+          f"goodput={stats.goodput:.3f} " + qs + lat +
+          f" clock={fe.clock.now*1e3:.1f}ms "
+          f"idle={fe.clock.spent('idle')*1e3:.1f}ms")
+
+
+def _make_tracer(args, clock=None):
+    """(tracer, activation-CM) for --trace; (None, no-op CM) otherwise.
+    Binding the frontend's virtual clock lets the exporter carry the
+    per-channel conservation proof in ``otherData``."""
+    if not getattr(args, "trace", None):
+        return None, contextlib.nullcontext()
+    from ..obs import Tracer, use_tracer
+    tr = Tracer(clock=clock)
+    return tr, use_tracer(tr)
+
+
+def _run_traffic(args, engine, gen: OpenLoopTraffic, spec: TrafficSpec):
+    """One open-loop traffic run through the ServingFrontend, honouring
+    the warm-restart flags (DESIGN.md §11).
+
+    With ``--snapshot PATH`` the frontend persists its clock / ledger /
+    queues around every dispatch; if PATH already exists the run RESUMES
+    from it — the seeded generator reproduces the same request stream,
+    the ledger keeps served ids served (at-most-once), and queued plus
+    in-flight ids are re-admitted for deterministic recompute.
+    ``--kill-after N`` stops after N dispatched batches so a follow-up
+    invocation of the same command exercises the resume path.
+
+    Returns ``(fe, stats, tracer, clock)``; ``clock`` is ``None`` on a
+    resumed run because the restored ledger carries pre-crash channel
+    time no span of this process witnessed, so the tracer's exact
+    clock-conservation cross-check cannot apply.
+    """
+    import json
+    import os
+    snap_path = getattr(args, "snapshot", None)
+    reqs = gen.generate(spec.requests)
+    resumed = False
+    if snap_path and os.path.exists(snap_path):
+        with open(snap_path) as f:
+            snap = json.load(f)
+        fe = ServingFrontend.restore(engine, snap, reqs,
+                                     snapshot_path=snap_path)
+        resumed = True
+        print(f"[restart] resumed from {snap_path}: "
+              f"readmitted={fe.ledger.readmitted} "
+              f"served_before={len(fe.ledger.served)} "
+              f"clock={fe.clock.now*1e3:.1f}ms")
+    else:
+        fe = ServingFrontend(engine, max_batch=spec.max_batch,
+                             snapshot_path=snap_path)
+    clock = None if resumed else fe.clock
+    tracer, activate = _make_tracer(args, clock)
+    with activate:
+        stats: ServeStats = fe.run(reqs,
+                                   max_dispatches=args.kill_after)
+    if args.kill_after is not None and fe.pending_requests():
+        print(f"[restart] stopped after {args.kill_after} dispatches: "
+              f"pending={fe.pending_requests()} snapshot -> {snap_path}; "
+              f"rerun the same command to resume")
+    _print_traffic(spec, fe, stats)
+    return fe, stats, tracer, clock
+
+
+def _build_registry(stats: ServeStats, server, engine, clock):
+    """One MetricsRegistry over every live stats surface of this run:
+    engine counters (``serve.``), the server's access-path counters
+    (``server.`` — a distinct ServeStats when the engine wraps a
+    WeightServer), recovery, prefetch, and the virtual clock."""
+    from ..obs import MetricsRegistry
+    reg = MetricsRegistry()
+    stats.register_into(reg, namespace="serve")
+    srv_stats = getattr(server, "stats", None)
+    if srv_stats is not None and srv_stats is not stats:
+        srv_stats.register_into(reg, namespace="server")
+    fault_stats = getattr(getattr(server, "store", None),
+                          "fault_stats", None)
+    if fault_stats is not None:
+        fault_stats.register_into(reg, namespace="recovery")
+    pf = getattr(engine, "prefetcher", None)
+    if pf is not None:
+        reg.register_object(
+            "prefetch", pf.stats,
+            [f.name for f in dataclasses.fields(pf.stats)])
+    if clock is not None:
+        reg.gauge("clock.now", lambda c=clock: c.now)
+        reg.gauge("clock.channels", lambda c=clock: dict(c.channels))
+    return reg
+
+
+def _export_obs(args, tracer, stats: ServeStats, server, engine,
+                clock=None) -> None:
+    """--trace / --report-json outputs, after the run completed."""
+    if tracer is not None:
+        from ..obs import write_trace
+        if clock is not None:
+            tracer.assert_matches_clock(clock)   # conservation proof
+        write_trace(args.trace, tracer, clock=clock)
+        print(f"[trace] spans={len(tracer.spans())} "
+              f"dropped={tracer.dropped} -> {args.trace}")
+    if getattr(args, "report_json", None):
+        import json
+        reg = _build_registry(stats, server, engine, clock)
+        snap = reg.snapshot()
+        with open(args.report_json, "w") as f:
+            json.dump(snap, f, indent=1, sort_keys=True)
+        print(f"[report-json] metrics={len(snap)} -> {args.report_json}")
+
+
 def _open_db(args, store: ModelStore):
     """Commit the freshly built store to --store-url and reopen it live:
     serving then faults pages from the backend with miss costs charged
@@ -219,15 +410,35 @@ def serve_embedding(args) -> tuple:
             server, heads, scheduler=args.scheduler,
             prefetcher=Prefetcher(server) if args.prefetch else None,
             overlap=args.overlap)
-    rng = np.random.default_rng(args.seed + 9)
-    for b in range(args.batches):
-        v = int(rng.integers(0, args.models))
-        name = f"word2vec-v{v}"
-        docs, labels = task.sample(args.batch_size, variant=v,
-                                   seed=args.seed + 100 + b)
-        engine.submit(name, docs)
-    stats = engine.run()
+    if args.traffic:
+        spec = TrafficSpec.parse(args.traffic)
+        docs_per_req = max(1, args.batch_size // spec.max_batch)
+        names = [f"word2vec-v{v}" for v in range(args.models)]
+
+        def _payload(model, rid, rng):
+            v = int(model.rsplit("-v", 1)[1])
+            docs, _ = task.sample(docs_per_req, variant=v,
+                                  seed=args.seed + 100 + rid)
+            return docs
+
+        gen = OpenLoopTraffic(names, rate=spec.rate, zipf_alpha=spec.zipf,
+                              slo_s=spec.slo_ms * 1e-3, seed=spec.seed,
+                              payload_fn=_payload)
+        fe, stats, tracer, clock = _run_traffic(args, engine, gen, spec)
+    else:
+        rng = np.random.default_rng(args.seed + 9)
+        for b in range(args.batches):
+            v = int(rng.integers(0, args.models))
+            name = f"word2vec-v{v}"
+            docs, labels = task.sample(args.batch_size, variant=v,
+                                       seed=args.seed + 100 + b)
+            engine.submit(name, docs)
+        clock = None
+        tracer, activate = _make_tracer(args)
+        with activate:
+            stats = engine.run()
     _print_stats(args, stats, server, engine)
+    _export_obs(args, tracer, stats, server, engine, clock)
     return stats, server
 
 
@@ -269,13 +480,29 @@ def serve_lm(args) -> tuple:
         engine = LMServingEngine(server, apis, templates,
                                  scheduler=args.scheduler,
                                  overlap=args.overlap)
-    rng = np.random.default_rng(args.seed)
-    for b in range(args.batches):
-        name = names[int(rng.integers(0, num_models))]
-        prompts = rng.integers(1, 64, size=(2, 8)).astype(np.int32)
-        engine.submit(name, prompts, steps=args.lm_steps)
-    stats = engine.run()
+    if args.traffic:
+        spec = TrafficSpec.parse(args.traffic)
+
+        def _payload(model, rid, prng):
+            prompts = prng.integers(1, 64, size=(1, 8)).astype(np.int32)
+            return prompts, args.lm_steps
+
+        gen = OpenLoopTraffic(names, rate=spec.rate, zipf_alpha=spec.zipf,
+                              slo_s=spec.slo_ms * 1e-3, seed=spec.seed,
+                              payload_fn=_payload)
+        fe, stats, tracer, clock = _run_traffic(args, engine, gen, spec)
+    else:
+        rng = np.random.default_rng(args.seed)
+        for b in range(args.batches):
+            name = names[int(rng.integers(0, num_models))]
+            prompts = rng.integers(1, 64, size=(2, 8)).astype(np.int32)
+            engine.submit(name, prompts, steps=args.lm_steps)
+        clock = None
+        tracer, activate = _make_tracer(args)
+        with activate:
+            stats = engine.run()
     _print_stats(args, stats, server, engine)
+    _export_obs(args, tracer, stats, server, engine, clock)
     return stats, server
 
 
@@ -312,6 +539,26 @@ def main(argv=None):
                          "'transient=0.05,corrupt=0.02,seed=7' — the "
                          "recovery layer retries/verifies/re-fetches and "
                          "serving stays bit-exact (DESIGN.md §8)")
+    ap.add_argument("--traffic", default=None, metavar="SPEC",
+                    help="open-loop request traffic instead of pre-built "
+                         "batches: 'rate=200,zipf=1.1,slo_ms=50,seed=0,"
+                         "requests=200,max_batch=8' — Poisson arrivals, "
+                         "Zipf model popularity, SLO-driven continuous "
+                         "batching + cost-based admission through the "
+                         "ServingFrontend; prints a [traffic] report "
+                         "line (p50/p99/goodput on the virtual clock)")
+    ap.add_argument("--snapshot", default=None, metavar="PATH",
+                    help="warm-restart snapshot (requires --traffic): "
+                         "persist the frontend's clock/ledger/queues "
+                         "around every dispatch; if PATH exists the run "
+                         "RESUMES from it — served requests stay served "
+                         "(at-most-once), queued and in-flight ones are "
+                         "re-admitted for deterministic recompute "
+                         "(DESIGN.md §11)")
+    ap.add_argument("--kill-after", type=int, default=None, metavar="N",
+                    help="stop after N dispatched batches (requires "
+                         "--snapshot): pending work stays in the "
+                         "snapshot; rerun the same command to resume")
     ap.add_argument("--scheduler", default="round_robin",
                     choices=sorted(SCHEDULERS))
     ap.add_argument("--backend", default="device",
@@ -340,6 +587,19 @@ def main(argv=None):
     ap.add_argument("--prefetch", action="store_true",
                     help="lambda-driven page prefetching (implies --overlap:"
                          " speculation only pays off hidden under compute)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record a request-path trace and write it here: "
+                         "'.json' = Chrome-trace/Perfetto (load in "
+                         "chrome://tracing or ui.perfetto.dev), '.jsonl' "
+                         "= one flat span dict per line (feed to "
+                         "scripts/trace_report.py).  Timestamps are "
+                         "virtual-clock microseconds; with --traffic the "
+                         "per-channel span time is asserted equal to the "
+                         "clock's channel ledger before writing")
+    ap.add_argument("--report-json", default=None, metavar="PATH",
+                    help="dump a MetricsRegistry snapshot of every stats "
+                         "surface (serve/server/recovery/prefetch/clock "
+                         "namespaces) as JSON")
     ap.add_argument("--vocab", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -351,6 +611,12 @@ def main(argv=None):
         raise SystemExit("--faults requires --store-url (faults inject "
                          "at the storage backend; the in-process store "
                          "has no backend to wrap)")
+    if args.snapshot and not args.traffic:
+        raise SystemExit("--snapshot requires --traffic (only the "
+                         "request-level frontend has restartable state)")
+    if args.kill_after is not None and not args.snapshot:
+        raise SystemExit("--kill-after requires --snapshot (stopping "
+                         "mid-run without a snapshot just loses work)")
     if args.engine == "lm":
         return serve_lm(args)
     if args.capacity_pages is None:

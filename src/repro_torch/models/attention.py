@@ -8,10 +8,10 @@ Counterpart of ``repro.models.attention``.  Three entry points:
     product with v), so a model run through it computes what the JAX
     model computes;
   * :func:`prefill_attend` — causal self-attention of a prompt: the
-    hand-written ``flash_attention`` kernel for CUDA tensors, ``attend``
-    for CPU tensors (a CUDA tensor never falls back to ``attend``; a
-    caller asks for it by name with ``kernel=False``, as the plain
-    oracle);
+    hand-written ``flash_attention`` kernel (:func:`flash_prefill`) for
+    CUDA tensors, ``attend`` for CPU tensors (a CUDA tensor never falls
+    back to ``attend``; a caller asks for it by name with
+    ``kernel=False``, as the plain oracle);
   * :func:`decode_attend` — one-token decode against a (partially
     filled) KV cache.
 
@@ -95,16 +95,24 @@ def attend(q, k, v, *, causal: bool = True, window: int = 0,
     return out.to(q.dtype)
 
 
+def flash_prefill(q, k, v, *, window: int = 0, softcap: float = 0.0):
+    """The kernel route of :func:`prefill_attend`, with the reference's
+    roundings: q is scaled in fp32 and cast to k's dtype (``attend``'s
+    ``qg``), ``flash_attention`` runs with scale 1 and writes its fp32
+    accumulator in q's dtype, with no second cast.  CPU tensors reach the
+    kernel's plain version (the CPU tests' way onto this route)."""
+    qs = (q.to(F32) * q.shape[-1] ** -0.5).to(k.dtype)
+    return ops.flash_attention(qs, k, v, causal=True, window=window,
+                               softcap=softcap, scale=1.0, out_dtype=q.dtype)
+
+
 def prefill_attend(q, k, v, *, window: int = 0, softcap: float = 0.0,
                    kernel: bool = True):
     """Causal self-attention of a prompt (q, k, v over the same
-    positions).  CUDA tensors go to the ``flash_attention`` kernel, which
-    takes one dtype: q is cast to k's dtype first (the reference casts the
-    scaled q the same way) and the result comes back in q's dtype."""
+    positions): CUDA tensors take :func:`flash_prefill` (the kernel),
+    CPU tensors :func:`attend`."""
     if kernel and q.device.type == "cuda":
-        out = ops.flash_attention(q.to(k.dtype), k, v, causal=True,
-                                  window=window, softcap=softcap)
-        return out.to(q.dtype)
+        return flash_prefill(q, k, v, window=window, softcap=softcap)
     return attend(q, k, v, causal=True, window=window, softcap=softcap)
 
 

@@ -298,6 +298,79 @@ def test_flash_attention_wgmma_body(cuda_device, B, Sq, Skv, H, K, hd, causal,
             rtol=2e-2, atol=2e-2)
 
 
+#: fp32 O from bf16 inputs: (body, B, Sq, Skv, H, K, hd, causal, window, cap)
+FP32_OUT_CASES = [
+    ("wgmma", 1, 130, 130, 4, 2, 64, True, 0, 0.0),
+    ("wgmma", 2, 200, 200, 4, 1, 128, True, 0, 30.0),
+    ("wgmma", 1, 96, 160, 2, 1, 256, True, 32, 50.0),
+    ("wgmma", 1, 150, 40, 2, 2, 128, True, 24, 0.0),   # rows with no key
+    ("fma", 1, 130, 130, 4, 2, 128, True, 0, 20.0),
+    ("fma", 1, 70, 90, 2, 2, 48, False, 16, 0.0),
+]
+
+
+@pytest.mark.parametrize("body,B,Sq,Skv,H,K,hd,causal,window,cap",
+                         FP32_OUT_CASES)
+def test_flash_attention_fp32_out(cuda_device, monkeypatch, body, B, Sq, Skv,
+                                  H, K, hd, causal, window, cap):
+    """bf16 q, k, v with an fp32 O, in both bodies, against the plain
+    version's fp32 result: the wgmma body rounds P to bf16 (1e-2, half the
+    bf16-out tolerance: O is no longer rounded); the fma body keeps P in
+    fp32 (the fp32 tolerance)."""
+    monkeypatch.setattr(ops, "flash_variant", lambda dtype, hd: body)
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+        for shape in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
+    v0 = dict(ops.VARIANT_LAUNCHES["flash_attention"])
+    kw = dict(causal=causal, window=window, softcap=cap,
+              out_dtype=torch.float32)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.VARIANT_LAUNCHES["flash_attention"][body] == v0[body] + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    want = ref.flash_attention(q, k, v, **kw)
+    assert want.dtype == torch.float32
+    rtol, atol = (1e-2, 1e-2) if body == "wgmma" else (1e-4, 1e-5)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=rtol, atol=atol)
+
+
+def test_flash_attention_fp32_input_bf16_out(cuda_device):
+    """The fma body also writes an fp32 input's result in bf16."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device)
+        for shape in ((1, 70, 4, 32), (1, 70, 2, 32), (1, 70, 2, 32)))
+    got = ops.flash_attention(q, k, v, out_dtype=torch.bfloat16)
+    want = ref.flash_attention(q, k, v)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.cpu().numpy(), rtol=2e-2, atol=2e-2)
+
+
+def test_prefill_attend_matches_attend_at_the_lm_shape(cuda_device):
+    """The model's prefill on the card (the kernel, with the reference's
+    roundings: q scaled in fp32 then cast, fp32 O) against the plain
+    attend on the card, at the LM shape: q fp32 [4, 512, 32, 128], k and v
+    bf16.  They differ only where each rounds p to bf16 (the kernel after
+    each 64-key tile's running max, attend after the row's final max), so
+    1e-2, half the bf16-out tolerance."""
+    from repro_torch.models.attention import attend, prefill_attend
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randn(4, 512, 32, 128, device=cuda_device, generator=g)
+    k, v = (torch.randn(4, 512, 32, 128, device=cuda_device,
+                        generator=g).bfloat16() for _ in range(2))
+    v0 = ops.VARIANT_LAUNCHES["flash_attention"]["wgmma"]
+    got = prefill_attend(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.VARIANT_LAUNCHES["flash_attention"]["wgmma"] == v0 + 1
+    assert got.dtype == torch.float32
+    want = attend(q, k, v, causal=True)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-2, atol=1e-2)
+
+
 def test_flash_attention_bf16_on_the_fma_body(cuda_device, monkeypatch):
     """bf16 at head dim 128 through the CUDA-core body (forced), which
     serves the other bf16 head dims."""
