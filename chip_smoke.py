@@ -48,6 +48,26 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      cuda run stopped after a few dispatches, only its snapshot file kept,
      restored into a fresh cuda engine: no request served on both sides,
      every request's logits bit-equal to the uninterrupted run;
+  5c. shards — the sharded slab on the same database: the 40 batches in
+     order (overlap on, prefetch off) through ``DedupDB.serve_embedding
+     (shards=n, placement=p)`` in cuda mode at 2 and 4 shards under both
+     placements, each at the smallest per-shard capacity at which every
+     batch's routed owned and borrowed page sets fit (derived from the
+     store and the traffic, printed), held against the single slab in
+     the same order and the host-mode sharded run (logits 1e-5, every
+     batch on the device, the route and borrow counters equal); under
+     ``hash`` pages are borrowed and gathers read the staging tail, and
+     ``[shards-kernels]`` holds ``dedup_embedding`` at one such map
+     against its plain version; the 2-shard ``sharers`` run again with
+     shard 0 failed at batch 13 and revived at 26 (logits 1e-5 of the
+     unfailed run, one failover, orphaned pages counted as store
+     faults); ``stacked_slab()`` against the shards' resident pages; the
+     FFNN ``device_matmul`` over 2 ``hash`` shards (staged W1 blocks)
+     against the single slab and, at that input, ``dedup_matmul``
+     against its plain version in fp32 and bf16; then ``[cli-shards]``:
+     ``python -m repro_torch.launch.serve --shards 2 --placement hash
+     --models 4`` with the embedding and the LM engine, each exiting 0
+     with ``borrows=`` > 0;
   6. LM      — deepseek-7b at full width (d_model 4096, 32 heads of 128,
      d_ff 11008; depth cut 30 -> 2, vocabulary 102,400 -> 32,768), two
      variants that differ in layer 1's feed-forward weights, registered
@@ -90,7 +110,8 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      ``[restart] resumed from``, offered == served + shed == 40 and
      ``dense_fallbacks=0``;
   7. a ``{"kernels": [...]}`` line with every ported kernel's launches
-     on its path (phases 2b, 4, 5, 5b and 6), its times and its bound;
+     on its path (phases 2b, 4, 5, 5b, 5c and 6), its times and its
+     bound;
   8. last line: ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure (the script catches nothing), so any
@@ -175,6 +196,11 @@ LM_TRAFFIC_REQUESTS, LM_TRAFFIC_MAX_BATCH = 8, 4
 LM_TRAFFIC_RATE, LM_TRAFFIC_SLO_MS = 20.0, 60000.0
 # the CLI's traffic run on the card, killed and resumed
 CLI_TRAFFIC = "rate=400,requests=40,slo_ms=200,max_batch=4"
+# the sharded slab on the word2vec store: the 40 batches in order, overlap
+# on, prefetch off (it reads the host clock), at 2 and 4 shards under both
+# placements; the 2-shard sharers run again with shard 0 failed at batch 13
+# and revived at batch 26
+SHARD_COUNTS, SHARD_FAIL, SHARD_REVIVE = (2, 4), 13, 26
 
 
 def log(msg: str) -> None:
@@ -595,26 +621,28 @@ def serve(db_url, heads, batches, capacity, kernel_mode):
     return engine, served, secs
 
 
-def profile_serving(torch, url, heads, batches, capacity) -> None:
+def profile_serving(torch, url, heads, batches, capacity, tag="[profile]",
+                    run=None, top=10) -> None:
     """The main path once more under torch.profiler (after the counted
     run): print the device-busy share of the window and device time by
-    kernel."""
+    kernel.  ``run()`` -> engine replaces the main path's serve."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine, _, _ = serve(url, heads, batches, capacity, "cuda")
+        engine = run() if run else serve(url, heads, batches, capacity,
+                                         "cuda")[0]
         wall = time.perf_counter() - t0
     rows = [(e.key, e.device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_time_total > 0 and e.device_type.name == "CUDA"]
     busy_us = sum(r[1] for r in rows)
-    log(f"[profile] wall={wall * 1e3:.1f}ms device_busy="
+    log(f"{tag} wall={wall * 1e3:.1f}ms device_busy="
         f"{busy_us / 1e3:.3f}ms busy_share={busy_us / 1e6 / wall:.4f} "
         f"compute={engine.stats.compute_seconds * 1e3:.1f}ms "
         f"batches={engine.stats.batches}")
-    for key, us, n in sorted(rows, key=lambda r: -r[1])[:10]:
-        log(f"[profile] {us / 1e3:9.3f}ms {n:6d}x  {key[:90]}")
+    for key, us, n in sorted(rows, key=lambda r: -r[1])[:top]:
+        log(f"{tag} {us / 1e3:9.3f}ms {n:6d}x  {key[:90]}")
 
 
 # -------------------------------------------------------------------- LM --
@@ -1530,6 +1558,364 @@ def cli_traffic_phase(tmpdir):
         f"seconds={time.perf_counter() - t0:.1f}")
 
 
+# ------------------------------------------------------------ shards --
+def batch_pages(planner, batches):
+    import numpy as np
+    return [planner.embedding_rows_pages(m, "embedding", np.unique(d))
+            for m, d in batches]
+
+
+def shard_capacity(store, pages, shards, placement, fail=False):
+    """The smallest per-shard capacity c at which every batch, routed in
+    order as the server routes it (replica ties spread by load; with
+    ``fail``, shard 0 dead from batch SHARD_FAIL to SHARD_REVIVE), has
+    at most c owned pages (its pinned group) and at most c borrowed ones
+    (the staging tail, borrow_capacity = c): below it the host-mode run
+    of the same traffic takes the host fallback.  Pure placement
+    arithmetic over the store's packing and the batches' page sets."""
+    from repro_torch.serving import ShardRouter, make_placement
+    lo = max(1, -(-max(len(p) for p in pages) // 2))
+    for c in range(lo, store.num_pages() + 1):
+        budget = int(0.5 * c) if placement == "sharers" else None
+        pl = make_placement(placement, store, shards, replicate_budget=budget)
+        dead = set()
+        router = ShardRouter(lambda: pl, dead_fn=lambda: dead)
+        need = 0
+        for i, p in enumerate(pages):
+            if fail and i == SHARD_FAIL:
+                dead.add(0)
+            if fail and i == SHARD_REVIVE:
+                dead.discard(0)
+            r = router.route(p)
+            need = max(need, len(r.owned), len(r.borrowed))
+            if need > c:
+                break
+        if need <= c:
+            return c
+    raise AssertionError(f"no capacity serves {shards} {placement} shards")
+
+
+def serve_sharded(url, heads, batches, capacity, kernel_mode, shards,
+                  placement, fail=False):
+    """The batches in order through a sharded DedupDB engine; (engine,
+    per-batch logits, wall seconds, the database)."""
+    from repro_torch.db import DedupDB
+    db = DedupDB.open(url)
+    engine = db.serve_embedding(heads, capacity_pages=capacity,
+                                scheduler="fifo", overlap=True,
+                                compute_backend="device",
+                                kernel_mode=kernel_mode, shards=shards,
+                                placement=placement)
+    srv = engine.server
+    for model, docs in batches:
+        engine.submit(model, docs)
+    out = []
+    t0 = time.perf_counter()
+    for i in range(len(batches)):
+        if fail and i == SHARD_FAIL:
+            srv.fail_shard(0)
+        if fail and i == SHARD_REVIVE:
+            srv.revive_shard(0)
+        engine.run(max_batches=1)
+        out.append(engine.last_logits.copy())
+        if shards > 1:
+            srv.sharded.check_invariants()
+    if kernel_mode == "cuda":
+        import torch
+        torch.cuda.synchronize()
+    return engine, out, time.perf_counter() - t0, db
+
+
+def shard_counters(srv):
+    s = srv.stats
+    return dict(shard_batches=dict(sorted(s.shard_batches.items())),
+                borrow_pages=s.borrow_pages,
+                borrow_mirror_hits=s.borrow_mirror_hits,
+                borrow_store_faults=s.borrow_store_faults,
+                borrow_coalesced=s.borrow_coalesced,
+                failovers=s.failovers)
+
+
+def max_err(a_list, b_list):
+    import numpy as np
+    return max(float(np.abs(a - b).max()) for a, b in zip(a_list, b_list))
+
+
+def shard_kernel_checks(torch, ops, ref, srv, store, model, docs):
+    """The gather at the sharded path's own input — the routed shard's
+    extended map (staged pages at ``capacity + stage_idx``) over its slab
+    and tail — against its plain version, bit-exact.  Returns the line."""
+    import numpy as np
+    s = srv._route.shard
+    pool = srv.sharded.pools[s]
+    vt = store.virtual_tensor(model, "embedding")
+    dev_map, uses_extra = srv.sharded.remap(s, vt, strict=False)
+    flat = pool.flat_pool()
+    bmap = torch.from_numpy(dev_map.reshape(vt.grid.grid)).cuda()
+    ids = torch.from_numpy(docs.reshape(-1).astype(np.int32)).cuda()
+    tail = int((bmap[ids.long() // 64] >= pool.capacity * 8).sum())
+    got = ops.dedup_embedding_striped(ids, flat, bmap, width=D)
+    want = ref.dedup_embedding_striped(ids, flat, bmap, width=D)
+    torch.cuda.synchronize()
+    if not uses_extra or tail == 0 or not torch.equal(got, want):
+        raise AssertionError(f"[shards-kernels] dedup_embedding over the "
+                             f"tail: uses_extra={uses_extra} tail_blocks="
+                             f"{tail} err="
+                             f"{float((got - want).abs().max())}")
+    return (f"dedup_embedding ids[{ids.numel()}] slab[{flat.shape[0]},64,64]"
+            f" (capacity {pool.capacity} + tail {pool.stage_rows} pages) "
+            f"blocks_from_tail={tail}: bit-exact")
+
+
+def ffnn_shard_check(torch, ops, ref, fstore, y_single):
+    """device_matmul("ffnn-1", "W1", x) through a 2-shard hash server:
+    W1's pages split across the shards, so the routed shard reads staged
+    blocks.  Held against the single slab's result (1e-4; bit-equality
+    expected) and, at the same input, against the plain version (fp32
+    1e-4, bf16 6e-2).  Returns (dedup_matmul launches in the counted
+    call, the line)."""
+    import numpy as np
+    from repro_torch.launch.mesh import shard_devices
+    from repro_torch.serving import ShardedWeightServer, StorageModel
+    srv = ShardedWeightServer(fstore, fstore.num_pages(),
+                              storage=StorageModel("dram"), shards=2,
+                              placement="hash", kernel_mode="cuda",
+                              devices=shard_devices(2, "cuda"))
+    srv.access_pages("ffnn-1", fstore.model_pages("ffnn-1"))
+    x = np.random.default_rng(SEED + 1).standard_normal(
+        (64, 2048)).astype(np.float32)
+    ops.reset_launches()
+    y = srv.device_matmul("ffnn-1", "W1", x)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["dedup_matmul"]
+    reads = srv.sharded.tail_reads["virtual_matmul"]
+    y = y.cpu().numpy()
+    err = float(np.abs(y - y_single).max())
+    if launches != 1 or reads != 1 or not np.allclose(y, y_single,
+                                                      rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"[shards] FFNN over 2 shards: launches="
+                             f"{launches} tail_reads={reads} err={err}")
+    # the same input against the plain version, in both dtypes
+    s = srv._route.shard
+    pool = srv.sharded.pools[s]
+    vt = fstore.virtual_tensor("ffnn-1", "W1")
+    dev_map, _ = srv.sharded.remap(s, vt)
+    bmap = torch.from_numpy(dev_map.reshape(vt.grid.grid)).cuda()
+    staged = int((bmap >= pool.capacity * 8).sum())
+    xt = torch.from_numpy(x).cuda()
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 6e-2)):
+        xa, wa = xt.to(dtype), pool.flat_pool().to(dtype)
+        got = ops.dedup_matmul(xa, wa, bmap).float()
+        want = ref.dedup_matmul(xa, wa, bmap).float()
+        torch.cuda.synchronize()
+        errs[str(dtype)[6:]] = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=tol, atol=tol):
+            raise AssertionError(f"[shards-kernels] dedup_matmul {dtype} "
+                                 f"over the tail: {errs}")
+    line = (f"FFNN device_matmul 2 shards hash: staged_blocks={staged} of "
+            f"{bmap.numel()} launches={launches} vs single slab "
+            f"max_abs_err={err:.3e} bit_equal={bool(np.array_equal(y, y_single))}"
+            f" (tol 1e-4); at this input vs plain fp32={errs['float32']:.3e}"
+            f" (tol 1e-4) bf16={errs['bfloat16']:.3e} (tol 6e-2)")
+    return launches, line
+
+
+def cli_shards_phase():
+    """[cli-shards]: the CLI with --shards 2 --placement hash on the card,
+    the embedding and the LM engine; each exits 0 and borrows."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--shards", "2",
+            "--placement", "hash", "--models", "4"]
+    # at --vocab 512 the word2vec store is 3 pages and a batch touches one:
+    # nothing to borrow, so the embedding run keeps the CLI's vocabulary
+    for engine, extra in (("embedding", []), ("lm", ["--vocab", "512"])):
+        t0 = time.perf_counter()
+        out = subprocess.run(base + ["--engine", engine] + extra,
+                             capture_output=True, text=True, env=env,
+                             timeout=300, cwd=str(ROOT))
+        if out.returncode != 0:
+            raise AssertionError(f"[cli-shards] {engine} exited "
+                                 f"{out.returncode}:\n{out.stdout[-2000:]}\n"
+                                 f"{out.stderr[-2000:]}")
+        lines = {tag: [ln for ln in out.stdout.splitlines()
+                       if ln.startswith(tag)]
+                 for tag in ("[shards]", "[device]")}
+        if not lines["[shards]"] or not lines["[device]"]:
+            raise AssertionError(f"[cli-shards] {engine}: no [shards] or "
+                                 f"[device] line:\n{out.stdout}")
+        kv = dict(p.split("=", 1) for p in lines["[shards]"][0].split()
+                  if "=" in p)
+        dev = dict(p.split("=", 1) for p in lines["[device]"][0].split()
+                   if "=" in p)
+        if int(kv["borrows"]) < 1 or dev["dense_fallbacks"] != "0" \
+                or dev["mode"] != "cuda":
+            raise AssertionError(f"[cli-shards] {engine}: "
+                                 f"{lines['[shards]'][0]} / "
+                                 f"{lines['[device]'][0]}")
+        log(f"[cli-shards] {engine}: {lines['[shards]'][0]}")
+        log(f"[cli-shards] {engine}: {lines['[device]'][0]} "
+            f"seconds={time.perf_counter() - t0:.1f}")
+
+
+def shards_phase(torch, ops, ref, url, heads, batches, capacity, fstore,
+                 y_single):
+    """[shards]: the sharded slab on the word2vec database (2 and 4
+    shards, both placements), cuda mode against the single slab and the
+    host-mode sharded run; failover; stacked_slab; the FFNN product over
+    2 shards; the CLI.  Returns the counted windows' launches."""
+    import numpy as np
+    from repro_torch.db import DedupDB
+    from repro_torch.serving.engine import WeightServer
+    t_phase = time.perf_counter()
+    pdb = DedupDB.open(url)                     # page maps only
+    store = pdb.store
+    pages = batch_pages(WeightServer(store, 2, backend="numpy"), batches)
+    # the single slab in the same order (the main path's scheduler
+    # reorders its batches)
+    _, single, _, db = serve_sharded(url, heads, batches, capacity, "cuda",
+                                     1, "sharers")
+    db.close()
+    caps = {(n, p): shard_capacity(store, pages, n, p)
+            for n in SHARD_COUNTS for p in ("sharers", "hash")}
+    fail_cap = shard_capacity(store, pages, 2, "sharers", fail=True)
+    log(f"[shards] capacity a shard (smallest that serves every batch on "
+        f"the device): {', '.join(f'{n}x{p}={c}' for (n, p), c in caps.items())}"
+        f", 2xsharers+failover={fail_cap}; single slab={capacity} of "
+        f"{store.num_pages()} pages; batch pages max={max(map(len, pages))}")
+    launches = {"dedup_embedding": 0, "dedup_matmul": 0}
+    runs = {}
+    kernel_line = None
+    for (n, placement), cap in caps.items():
+        # the counted window: counts to 0 right before, read right after
+        ops.reset_launches()
+        engine, out, wall, db = serve_sharded(url, heads, batches, cap,
+                                              "cuda", n, placement)
+        n_gather = ops.LAUNCHES["dedup_embedding"]
+        launches["dedup_embedding"] += n_gather
+        srv = engine.server
+        st = engine.stats
+        tail = srv.sharded.tail_reads["gather_rows"]
+        hengine, hout, hwall, hdb = serve_sharded(url, heads, batches, cap,
+                                                  "host", n, placement)
+        # one page less a shard and the host-mode run takes the host
+        # fallback: the capacity is the smallest that serves on the device
+        below, _, _, bdb = serve_sharded(url, heads, batches, cap - 1, "host",
+                                         n, placement)
+        bdb.close()
+        mine, host = shard_counters(srv), shard_counters(hengine.server)
+        e_single, e_host = max_err(out, single), max_err(out, hout)
+        log(f"[shards] n={n} placement={placement} capacity={cap} "
+            f"batches={st.batches} device_batches={st.device_batches} "
+            f"dense_fallbacks={st.dense_fallbacks} "
+            f"batches_per_shard={mine['shard_batches']} "
+            f"borrows={mine['borrow_pages']} (mirror="
+            f"{mine['borrow_mirror_hits']} owner_faults="
+            f"{mine['borrow_store_faults']} coalesced="
+            f"{mine['borrow_coalesced']}) rebalanced={srv.router.rebalanced}"
+            f" hit_ratio={srv.pool.hit_ratio:.3f} loads={srv.device_pool.loads}"
+            f" gather_launches={n_gather} tail_gathers={tail} "
+            f"wall={wall:.3f}s host_wall={hwall:.3f}s "
+            f"host_device_batches_at_capacity-1="
+            f"{below.stats.device_batches} "
+            f"vs_single={e_single:.3e} vs_host={e_host:.3e} (tol 1e-5)")
+        if below.stats.device_batches >= BATCHES:
+            raise AssertionError(f"[shards] {n}x{placement}: capacity "
+                                 f"{cap - 1} serves every batch too")
+        if st.batches != BATCHES or st.device_batches != BATCHES \
+                or st.dense_fallbacks != 0 \
+                or hengine.stats.device_batches != BATCHES:
+            raise AssertionError(f"[shards] {n}x{placement}: device_batches="
+                                 f"{st.device_batches} (host "
+                                 f"{hengine.stats.device_batches}) of "
+                                 f"{st.batches}, dense_fallbacks="
+                                 f"{st.dense_fallbacks}")
+        if mine != host:
+            raise AssertionError(f"[shards] {n}x{placement}: cuda counters "
+                                 f"{mine} != host {host}")
+        if e_single > 1e-5 or e_host > 1e-5 or not all(
+                o.shape == (DOCS, 2) and np.isfinite(o).all() for o in out):
+            raise AssertionError(f"[shards] {n}x{placement}: logits differ "
+                                 f"by {e_single} / {e_host} (> 1e-5)")
+        if n_gather != BATCHES:
+            raise AssertionError(f"[shards] {n}x{placement}: "
+                                 f"{n_gather} gathers for {BATCHES} batches")
+        if placement == "hash" and (mine["borrow_pages"] < 1 or tail < 1):
+            raise AssertionError(f"[shards] {n}x{placement}: borrows="
+                                 f"{mine['borrow_pages']} tail_gathers={tail}")
+        if placement == "hash" and kernel_line is None:
+            kernel_line = shard_kernel_checks(torch, ops, ref, srv, store,
+                                              *batches[-1])
+        if (n, placement) == (2, "sharers"):
+            slab = srv.sharded.stacked_slab()
+            for s_, pool in enumerate(srv.sharded.pools):
+                pids = sorted(pool.slot_of)
+                want = torch.from_numpy(np.stack(
+                    [store.page_array(p) for p in pids])).cuda()
+                slots = torch.tensor([pool.slot_of[p] for p in pids]).cuda()
+                if not torch.equal(slab[s_, slots], want):
+                    raise AssertionError(f"[shards] stacked_slab shard {s_} "
+                                         f"!= its resident pages")
+            log(f"[shards] stacked_slab {tuple(slab.shape)} == the shards' "
+                f"resident rows ({[len(p.slot_of) for p in srv.sharded.pools]}"
+                f" pages)")
+        runs[(n, placement)] = out
+        db.close()
+        hdb.close()
+    log(f"[shards-kernels] {kernel_line}")
+
+    def profiled():
+        engine, _, _, db = serve_sharded(url, heads, batches,
+                                         caps[(2, "hash")], "cuda", 2,
+                                         "hash")
+        db.close()
+        return engine
+    # the 2-shard hash run once more under torch.profiler (uncounted)
+    profile_serving(torch, url, heads, batches, None, "[shards-profile]",
+                    profiled, top=6)
+
+    # failover: shard 0 dead from batch SHARD_FAIL to SHARD_REVIVE
+    ops.reset_launches()
+    engine, out, wall, db = serve_sharded(url, heads, batches, fail_cap,
+                                          "cuda", 2, "sharers", fail=True)
+    launches["dedup_embedding"] += ops.LAUNCHES["dedup_embedding"]
+    hengine, _, _, hdb = serve_sharded(url, heads, batches, fail_cap, "host",
+                                       2, "sharers", fail=True)
+    mine, host = shard_counters(engine.server), shard_counters(hengine.server)
+    uengine, _, _, udb = serve_sharded(url, heads, batches, fail_cap, "host",
+                                       2, "sharers")
+    unfailed = shard_counters(uengine.server)
+    udb.close()
+    err = max_err(out, runs[(2, "sharers")])
+    st = engine.stats
+    log(f"[shards] failover 2xsharers capacity={fail_cap}: shard 0 failed at "
+        f"batch {SHARD_FAIL}, revived at {SHARD_REVIVE}: failovers="
+        f"{mine['failovers']} batches_per_shard={mine['shard_batches']} "
+        f"borrows={mine['borrow_pages']} store_faults="
+        f"{mine['borrow_store_faults']} (unfailed "
+        f"{unfailed['borrow_store_faults']}) device_batches="
+        f"{st.device_batches} dense_fallbacks={st.dense_fallbacks} "
+        f"vs_unfailed={err:.3e} (tol 1e-5) wall={wall:.3f}s")
+    if mine != host or mine["failovers"] != 1 or err > 1e-5 \
+            or st.device_batches != BATCHES or st.dense_fallbacks \
+            or mine["borrow_store_faults"] <= unfailed["borrow_store_faults"]:
+        raise AssertionError(f"[shards] failover: {mine} (host {host}, "
+                             f"unfailed {unfailed}), err {err}")
+    db.close()
+    hdb.close()
+
+    # the FFNN product over 2 shards (its own counted window)
+    n_mm, line = ffnn_shard_check(torch, ops, ref, fstore, y_single)
+    launches["dedup_matmul"] += n_mm
+    log(f"[shards] {line}")
+    cli_shards_phase()
+    pdb.close()
+    log(f"[shards] launches={launches} seconds="
+        f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def main() -> int:
     # ------------------------------------------------------ 1. device --
     import torch
@@ -1690,6 +2076,12 @@ def main() -> int:
     # the traffic windows' gathers join the main path's
     launches["dedup_embedding"] += traffic_launches
     log(f"[traffic] seconds={time.perf_counter() - t0:.1f}")
+
+    # ------------------------------------------ 5c. the sharded slab --
+    shard_launches = shards_phase(torch, ops, ref, url, heads, batches,
+                                  capacity, fstore, y)
+    for name, n in shard_launches.items():
+        launches[name] += n
 
     # ----------------------------------------------------------- 6. LM --
     t0 = time.perf_counter()

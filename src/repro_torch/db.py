@@ -26,7 +26,8 @@ By default the server computes on the GPU (``compute_backend="device"``,
 Likewise ``register``, ``update`` and the re-index of a reopened store
 sign blocks on the card (``index_mode="auto"``, the ``lsh_signature``
 kernel); a CPU caller opens with ``index_mode="torch"``/``"host"``.
-Sharded slabs are a later slice of the port.
+``shards > 1`` partitions the slab across per-shard slabs
+(:class:`~repro_torch.serving.shard_pool.ShardedWeightServer`).
 """
 from __future__ import annotations
 
@@ -119,20 +120,34 @@ class DedupDB:
                       compute_backend: str = "device",
                       kernel_mode: str = "auto",
                       shards: int = 1,
+                      placement: str = "sharers",
                       transfer: str = "grouped",
                       device=None) -> WeightServer:
         """ModelStore + Eq.-2 buffer pool + calibrated storage clock.
         ``compute_backend="device"`` serves through the device page slab
         (DESIGN.md §3); slab faults then source pages straight from this
-        database's backend.  ``transfer`` selects the host->device
-        movement path (DESIGN.md §6); ``device`` places the slab (see
-        :class:`WeightServer`)."""
-        if shards > 1:
-            raise NotImplementedError(
-                "shards > 1: the sharded slab (ShardedWeightServer) is a "
-                "later slice of the port")
+        database's backend.  ``shards > 1`` partitions the slab across
+        per-shard slabs with the selected placement policy (DESIGN.md
+        §5; capacity is then per shard), each on the device
+        :func:`~repro_torch.launch.mesh.shard_devices` gives it, or all on
+        ``device`` when one is given.  ``transfer`` selects the
+        host->device movement path (DESIGN.md §6); ``device`` places the
+        slab (see :class:`WeightServer`)."""
         if capacity_pages is None:
             capacity_pages = max(1, self.store.num_pages())
+        if shards > 1:
+            if compute_backend != "device":
+                raise ValueError("shards > 1 requires "
+                                 "compute_backend='device'")
+            from .launch.mesh import shard_devices
+            from .serving.shard_pool import ShardedWeightServer
+            devices = [device] * shards if device is not None \
+                else shard_devices(shards, kernel_mode)
+            return ShardedWeightServer(self.store, capacity_pages, policy,
+                                       storage or self.storage_model(),
+                                       shards=shards, placement=placement,
+                                       kernel_mode=kernel_mode,
+                                       devices=devices, transfer=transfer)
         return WeightServer(self.store, capacity_pages, policy,
                             storage or self.storage_model(),
                             backend=compute_backend, kernel_mode=kernel_mode,
@@ -147,14 +162,15 @@ class DedupDB:
                         kernel_mode: str = "auto",
                         storage: Optional[StorageModel] = None,
                         embed_tensor: str = "embedding",
-                        shards: int = 1,
+                        shards: int = 1, placement: str = "sharers",
                         transfer: str = "grouped",
                         ) -> EmbeddingServingEngine:
         """The paper's multi-model embedding scenario, served out of this
         database in one call.  Returns the engine; ``submit``/``run`` it."""
         server = self.weight_server(capacity_pages, policy, storage,
                                     compute_backend, kernel_mode,
-                                    shards=shards, transfer=transfer)
+                                    shards=shards, placement=placement,
+                                    transfer=transfer)
         prefetcher = None
         if prefetch:
             from .serving.prefetch import Prefetcher
@@ -180,12 +196,11 @@ class DedupDB:
                  ) -> LMServingEngine:
         """LM variants served via prefill/decode with weights faulted
         through the pool (and the backend) on model switch.  ``apis`` and
-        ``params_template`` as :class:`LMServingEngine` takes them;
-        ``placement`` belongs to the sharded slab (a later slice)."""
+        ``params_template`` as :class:`LMServingEngine` takes them."""
         server = self.weight_server(capacity_pages, policy, storage,
                                     compute_backend, kernel_mode,
-                                    shards=shards, transfer=transfer,
-                                    device=device)
+                                    shards=shards, placement=placement,
+                                    transfer=transfer, device=device)
         prefetcher = None
         if prefetch:
             from .serving.prefetch import Prefetcher

@@ -12,8 +12,12 @@ With ``--store-url`` the store is committed to a storage backend
 object store) and served back *live* through ``repro_torch.db.DedupDB``.
 
 ``--backend device`` (the default) serves through the device page slab
-with the CUDA kernels and needs an NVIDIA GPU of capability (9, 0);
-``--backend numpy`` is the host simulator.
+with the CUDA kernels and needs an NVIDIA GPU of capability (9, 0)
+(``--kernel-mode torch`` / ``host`` serve the slab with the kernels'
+plain versions / numpy on the CPU); ``--backend numpy`` is the host
+simulator.  ``--shards N`` partitions the slab across N per-shard slabs
+(``--placement hash`` or ``sharers``; capacity is per shard) and prints
+a ``[shards]`` line.
 
 ``--engine lm`` serves reduced deepseek-7b variants with prefill and
 ``--lm-steps`` greedy decode steps; their weights fault in through the
@@ -41,6 +45,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --store-url sqlite:////tmp/m.db
   PYTHONPATH=src python -m repro_torch.launch.serve --engine lm --batches 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --shards 2 \
+      --placement hash --models 4
   PYTHONPATH=src python -m repro_torch.launch.serve --backend numpy \
       --traffic rate=400,requests=40,slo_ms=200,max_batch=4 \
       --snapshot /tmp/fe.json --kill-after 3
@@ -120,8 +126,7 @@ def build_lm_store(cfg, num_models: int, seed: int = 0,
 # Audit map: every ServeStats field -> (report tag, key on that line).
 # tests/test_torch_obs.py pins this map against dataclasses.fields
 # (ServeStats), so growing a counter without deciding its report line
-# fails, and no field is printed from two lines at once.  The [shards]
-# line comes with the sharded slab; this CLI has no --shards yet.
+# fails, and no field is printed from two lines at once.
 REPORT_FIELDS = {
     "requests": ("serve", "requests="),
     "batches": ("serve", "batches="),
@@ -198,6 +203,16 @@ def _print_stats(args, stats: ServeStats, server: WeightServer,
               f"issued={pf.stats.issued} declined={pf.stats.declined} "
               f"lookahead_issued={pf.stats.lookahead_issued} "
               f"lookahead_hits={pf.stats.lookahead_hits}")
+    if getattr(args, "shards", 1) > 1:
+        s = server.stats                 # borrow/routing live on the server
+        print(f"[shards] n={args.shards} placement={args.placement} "
+              f"batches_per_shard={dict(sorted(s.shard_batches.items()))} "
+              f"borrows={s.borrow_pages} "
+              f"(mirror={s.borrow_mirror_hits} "
+              f"owner_faults={s.borrow_store_faults} "
+              f"coalesced={s.borrow_coalesced}) "
+              f"rebalanced={server.router.rebalanced} "
+              f"borrow={s.borrow_seconds*1e3:.2f}ms")
     if getattr(args, "faults", None):
         # recovery counters accumulate on the server's stats (where the
         # access-path accounting lives); degradation is an engine event
@@ -382,6 +397,26 @@ def _open_db(args, store: ModelStore):
     return db, storage
 
 
+def _make_server(args, store: ModelStore, capacity_pages: int
+                 ) -> WeightServer:
+    """A (possibly sharded) weight server per the CLI flags.  --shards
+    N>1 partitions the page pool across N per-shard slabs with the
+    selected placement policy; capacity is then PER SHARD (one device's
+    slab)."""
+    storage = StorageModel(args.storage)
+    if args.shards > 1:
+        from ..serving.shard_pool import ShardedWeightServer
+        from .mesh import shard_devices
+        return ShardedWeightServer(
+            store, capacity_pages, args.policy, storage, shards=args.shards,
+            placement=args.placement, kernel_mode=args.kernel_mode,
+            devices=shard_devices(args.shards, args.kernel_mode),
+            transfer=args.transfer)
+    return WeightServer(store, capacity_pages, args.policy, storage,
+                        backend=args.backend, kernel_mode=args.kernel_mode,
+                        transfer=args.transfer)
+
+
 def serve_embedding(args) -> tuple:
     task = SyntheticTextTask(vocab=args.vocab, seed=args.seed)
     store, heads = build_store(task, args.models,
@@ -399,13 +434,11 @@ def serve_embedding(args) -> tuple:
             heads, capacity_pages=args.capacity_pages, policy=args.policy,
             scheduler=args.scheduler, overlap=args.overlap,
             prefetch=args.prefetch, compute_backend=args.backend,
-            transfer=args.transfer)
+            kernel_mode=args.kernel_mode, shards=args.shards,
+            placement=args.placement, transfer=args.transfer)
         server = engine.server
     else:
-        server = WeightServer(store, args.capacity_pages, args.policy,
-                              StorageModel(args.storage),
-                              backend=args.backend,
-                              transfer=args.transfer)
+        server = _make_server(args, store, args.capacity_pages)
         engine = EmbeddingServingEngine(
             server, heads, scheduler=args.scheduler,
             prefetcher=Prefetcher(server) if args.prefetch else None,
@@ -471,12 +504,12 @@ def serve_lm(args) -> tuple:
                              policy=args.policy, scheduler=args.scheduler,
                              overlap=args.overlap, prefetch=args.prefetch,
                              compute_backend=args.backend,
+                             kernel_mode=args.kernel_mode,
+                             shards=args.shards, placement=args.placement,
                              transfer=args.transfer)
         server = engine.server
     else:
-        server = WeightServer(store, cap, args.policy,
-                              StorageModel(args.storage),
-                              backend=args.backend, transfer=args.transfer)
+        server = _make_server(args, store, cap)
         engine = LMServingEngine(server, apis, templates,
                                  scheduler=args.scheduler,
                                  overlap=args.overlap)
@@ -567,14 +600,20 @@ def main(argv=None):
                          "the CUDA dedup kernels (DESIGN.md §3; needs a GPU "
                          "of capability (9, 0)); numpy: host "
                          "materialization (policy simulator)")
+    ap.add_argument("--kernel-mode", default="auto", choices=KERNEL_MODES,
+                    help="how --backend device computes from the slab: "
+                         "cuda = the CUDA kernels (auto = cuda, needs a GPU "
+                         "of capability (9, 0)); torch = their plain "
+                         "PyTorch versions; host = numpy gathers from the "
+                         "slab's host mirror")
     ap.add_argument("--index-mode", default=None,
                     choices=KERNEL_MODES,
                     help="where the store build signs blocks (Alg. 1): "
                          "cuda = the lsh_signature kernel (auto = cuda, "
                          "needs a GPU of capability (9, 0)); torch = its "
                          "plain PyTorch version; host = the reference's "
-                         "numpy routine.  Default: auto with --backend "
-                         "device, host with --backend numpy")
+                         "numpy routine.  Default: --kernel-mode with "
+                         "--backend device, host with --backend numpy")
     ap.add_argument("--transfer", default="grouped",
                     choices=("per_page", "grouped"),
                     help="host->device page movement: per_page (one copy "
@@ -582,6 +621,15 @@ def main(argv=None):
                          "misses coalesce into ONE staged stack, one copy, "
                          "one index_copy_, one remap generation bump; "
                          "DESIGN.md §6)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="partition the device page pool across N shards "
+                         "(per-shard slabs + majority-cover routing + "
+                         "cross-shard borrowing; capacity is per shard)")
+    ap.add_argument("--placement", default="sharers",
+                    choices=("hash", "sharers"),
+                    help="page->shard placement: hash-mod baseline, or "
+                         "sharer-weighted (replicate hot shared pages, "
+                         "partition singletons by model affinity)")
     ap.add_argument("--overlap", action="store_true",
                     help="double-buffer grouped fetches against compute")
     ap.add_argument("--prefetch", action="store_true",
@@ -604,7 +652,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.index_mode is None:
-        args.index_mode = "auto" if args.backend == "device" else "host"
+        args.index_mode = args.kernel_mode if args.backend == "device" \
+            else "host"
+    if args.shards > 1 and args.backend != "device":
+        raise SystemExit("--shards > 1 requires --backend device "
+                         "(the numpy path has no slabs to partition)")
     if args.prefetch:
         args.overlap = True
     if args.faults and not args.store_url:

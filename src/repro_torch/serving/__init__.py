@@ -4,9 +4,13 @@ from .engine import (EmbeddingServingEngine, FetchComputeTimeline,
 from .frontend import BatchComputeModel, RequestLedger, ServingFrontend
 from .kvcache import PagedKVCache
 from .prefetch import Prefetcher, PrefetchStats
+from .router import RouteDecision, ShardRouter
 from .scheduler import (SCHEDULERS, BatchScheduler, DedupAffinityScheduler,
                         FifoScheduler, RoundRobinScheduler, ScheduledBatch,
                         make_scheduler)
+from .shard_pool import (PLACEMENTS, Placement, ShardedPagePool,
+                         ShardedWeightServer, hash_placement, make_placement,
+                         sharers_placement)
 from .traffic import (OpenLoopTraffic, Request, TrafficSpec, VirtualClock,
                       zipf_weights, zoo_popularity)
 from .transfer import PendingGroup, TransferEngine, TransferStats, fit_channel
@@ -18,6 +22,9 @@ __all__ = ["DevicePagePool", "KERNEL_MODES", "resolve_kernel_mode",
            "PagedKVCache", "Prefetcher", "PrefetchStats",
            "SCHEDULERS", "BatchScheduler", "DedupAffinityScheduler",
            "FifoScheduler", "RoundRobinScheduler", "ScheduledBatch",
-           "make_scheduler", "OpenLoopTraffic", "Request", "TrafficSpec",
+           "make_scheduler", "RouteDecision", "ShardRouter", "PLACEMENTS",
+           "Placement", "ShardedPagePool", "ShardedWeightServer",
+           "hash_placement", "make_placement", "sharers_placement",
+           "OpenLoopTraffic", "Request", "TrafficSpec",
            "VirtualClock", "zipf_weights", "zoo_popularity",
            "PendingGroup", "TransferEngine", "TransferStats", "fit_channel"]

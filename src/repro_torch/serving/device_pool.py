@@ -5,9 +5,11 @@ deduplicated blocks between disk and DRAM; on a GPU the same two tiers
 are host DRAM (the ModelStore's distinct-block arrays) and HBM
 (DESIGN.md §2).  :class:`DevicePagePool` is the HBM side:
 
-  * a **fixed preallocated slab** ``[capacity_pages, blocks_per_page,
-    bh, bw]``, a torch tensor on the pool's device — page loads are real
-    host->device copies committed with ``index_copy_``;
+  * a **fixed preallocated slab** ``[capacity_pages + stage_rows,
+    blocks_per_page, bh, bw]``, a torch tensor on the pool's device —
+    page loads are real host->device copies committed with
+    ``index_copy_``; the ``stage_rows`` past ``capacity`` are the
+    borrow-staging tail of a sharded pool (:meth:`write_stage`);
   * a **physical->slot remap**: :meth:`remap` rewrites a
     ``ModelStore.virtual_tensor`` flat block map (physical slot space,
     ``page * l + slot``) into slab-slot space (``slab_slot * l + slot``)
@@ -91,7 +93,7 @@ class DevicePagePool:
 
     def __init__(self, store: ModelStore, capacity_pages: int,
                  dtype=torch.float32, kernel_mode: str = "auto",
-                 device=None):
+                 device=None, stage_rows: int = 0):
         self.kernel_mode = kernel_mode
         self._mode = resolve_kernel_mode(kernel_mode, device)
         self.store = store
@@ -99,9 +101,15 @@ class DevicePagePool:
         self.block_shape = (bh, bw)
         self.blocks_per_page = store.cfg.blocks_per_page
         self.capacity = int(capacity_pages)
+        # Borrow-staging tail (sharded serving): ``stage_rows`` page rows
+        # past the resident slots, written only by :meth:`write_stage`.
+        # Extended remaps point borrowed pages at ``capacity + stage_idx``,
+        # so the kernels read one stable buffer.  No load, group commit
+        # or free slot ever lands there (``_free`` covers ``capacity``).
+        self.stage_rows = int(stage_rows)
         self.dtype = dtype
         self.device = self._resolve_device(device)
-        rows = self.capacity
+        rows = self.capacity + self.stage_rows
         # One backing store per mode: the preallocated tensor slab, or,
         # in host mode, its numpy counterpart (the host tier itself).
         shape = (rows, self.blocks_per_page, bh, bw)
@@ -224,10 +232,33 @@ class DevicePagePool:
         return set(self.slot_of.values())
 
     def flat_pool(self) -> torch.Tensor:
-        """Kernel view of the slab: [capacity*blocks_per_page, bh, bw]."""
+        """Kernel view of the slab, its staging tail included:
+        [(capacity + stage_rows) * blocks_per_page, bh, bw]."""
         bh, bw = self.block_shape
         return self.slab.view(self.slab.shape[0] * self.blocks_per_page,
                               bh, bw)
+
+    def write_stage(self, stage_slots, rows) -> None:
+        """Write pages into the borrow-staging tail: ``rows[i]`` lands in
+        tail slot ``stage_slots[i]``, slab row ``capacity +
+        stage_slots[i]``.  The tail's only writer.  ``rows`` is a tensor
+        (moved to the pool's device and dtype, committed with one
+        ``index_copy_``) in cuda and torch mode, an array in host mode.
+        Residency and the remap generation are untouched: no remap points
+        at a tail row but the sharded pool's per-batch extended one."""
+        idx = np.asarray(stage_slots, np.int64)
+        if not len(idx):
+            return
+        if idx.min() < 0 or idx.max() >= self.stage_rows:
+            raise IndexError(f"staging slots {idx.min()}..{idx.max()} "
+                             f"outside the tail of {self.stage_rows}")
+        idx = idx + self.capacity
+        if self._mode == "host":
+            # repro: allow-slab-write (the staging tail's one writer)
+            self.host_slab[idx] = rows
+            return
+        self.slab.index_copy_(0, self._put(idx),
+                              rows.to(self.device, self.dtype))
 
     def slot_page(self, slot: int) -> np.ndarray:
         """Host copy of one slab slot (tests / debugging)."""

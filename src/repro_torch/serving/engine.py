@@ -520,10 +520,10 @@ class WeightServer:
     def shard_resident_pages(self, shard: Optional[int] = None):
         """Resident page ids of one shard's pool — the admission
         probe's view of dedup affinity.  A single-slab server has
-        exactly one 'shard'; the sharded server (a later slice of the
-        port) overrides this with the per-shard pools so a routed batch
-        is scored against the residency of the shard it would actually
-        land on."""
+        exactly one 'shard'; :class:`~repro_torch.serving.shard_pool.
+        ShardedWeightServer` overrides this with the per-shard pools so
+        a routed batch is scored against the residency of the shard it
+        would actually land on."""
         return self.pool.resident_pages()
 
     def tensor_pages(self, model: str, tensor: str) -> List[int]:

@@ -18,6 +18,9 @@ bodies asserts which body ran (``ops.VARIANT_LAUNCHES``).  LSH
 signatures: equal except hashes at a bucket edge (``ref.lsh_edges``),
 on both bodies (tf32x3 and fma), and the same bits from call to call;
 stores built on the card: block maps and pages equal to the host build.
+Sharded slab: the kernels at a block map into the staging tail as above;
+cuda-mode sharded logits 1e-5 of the host-mode sharded run, its routes
+and borrow counters exactly; LM tokens equal to torch mode.
 """
 import numpy as np
 import pytest
@@ -553,3 +556,151 @@ def test_dedup_db_cuda_build_matches_host(cuda_device, tmp_path):
     assert updated["cuda"][1] == updated["host"][1]
     for m, bm in updated["host"][0].items():
         np.testing.assert_array_equal(updated["cuda"][0][m], bm)
+
+
+# ------------------------------------------------------- sharded slab --
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_read_a_staging_tail(cuda_device, dtype):
+    """The sharded path's new input: a block map pointing past
+    ``capacity`` into the borrow-staging tail, over a slab longer than
+    ``capacity`` (pages of 8 64x64 blocks).  The gather stays bit-exact
+    (on the idx32 instance), the product within 1e-4 fp32 / 6e-2 bf16 on
+    its planned body (fma / wgmma)."""
+    cap, stage, l = 20, 12, 8
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    pool = torch.randn((cap + stage) * l, 64, 64, device=cuda_device,
+                       generator=g).to(dtype)
+    lo, hi = cap * l, (cap + stage) * l
+    bmap = torch.randint(0, hi, (40, 5), dtype=torch.int32,
+                         device=cuda_device, generator=g)
+    bmap[::2] = torch.randint(lo, hi, (20, 5), dtype=torch.int32,
+                              device=cuda_device, generator=g)
+    bmap[-1, -1] = hi - 1                        # the tail's last block
+    ids = torch.randint(0, 40 * 64, (512,), dtype=torch.int32,
+                        device=cuda_device, generator=g)
+    v0 = dict(ops.VARIANT_LAUNCHES["dedup_embedding"])
+    got = ops.dedup_embedding_striped(ids, pool, bmap, width=300)
+    torch.cuda.synchronize()
+    assert ops.VARIANT_LAUNCHES["dedup_embedding"]["idx32"] == v0["idx32"] + 1
+    assert torch.equal(got, ref.dedup_embedding_striped(ids, pool, bmap,
+                                                        width=300))
+    wmap = torch.randint(lo, hi, (32, 4), dtype=torch.int32,
+                         device=cuda_device, generator=g)
+    wmap[:, 0] = torch.randint(0, lo, (32,), dtype=torch.int32,
+                               device=cuda_device, generator=g)
+    x = torch.randn(64, 2048, device=cuda_device, generator=g).to(dtype)
+    _matmul_check(x, pool, wmap,
+                  ops.matmul_plan(64, 32, 4, 64, 64, dtype).variant)
+
+
+def _sharded_scenario():
+    task = SyntheticTextTask(vocab=2048, d=72, seed=0)
+    store, heads = build_store(task, 4, block_shape=(32, 32),
+                               blocks_per_page=4, index_mode="host")
+    batches = [(f"word2vec-v{b % 4}",
+                task.sample(16, variant=b % 4, seed=300 + b)[0])
+               for b in range(8)]
+    return store, heads, batches
+
+
+def _sharded_server(store, kernel_mode, placement="hash", **kw):
+    from repro_torch.launch.mesh import shard_devices
+    from repro_torch.serving import ShardedWeightServer
+    return ShardedWeightServer(store, store.num_pages(),
+                               storage=StorageModel("dram"), shards=2,
+                               placement=placement, kernel_mode=kernel_mode,
+                               devices=shard_devices(2, kernel_mode), **kw)
+
+
+def test_sharded_cuda_serving_matches_host(cuda_device):
+    """2 shards in cuda mode serve the host-mode sharded run's logits
+    (1e-5), with its routes and borrow counters exactly; under hash the
+    gather reads staged blocks from the tail."""
+    store, heads, batches = _sharded_scenario()
+    for placement in ("hash", "sharers"):
+        runs = {}
+        for km in ("host", "cuda"):
+            srv = _sharded_server(store, km, placement)
+            engine = EmbeddingServingEngine(srv, heads, overlap=True,
+                                            scheduler="fifo")
+            n0 = ops.LAUNCHES["dedup_embedding"]
+            out = []
+            for model, docs in batches:
+                engine.submit(model, docs)
+                engine.run(max_batches=1)
+                out.append(engine.last_logits.copy())
+                srv.sharded.check_invariants()
+            assert engine.stats.device_batches == len(batches)
+            assert engine.stats.dense_fallbacks == 0
+            s = srv.stats
+            runs[km] = (out, dict(s.shard_batches), s.borrow_pages,
+                        s.borrow_mirror_hits, s.borrow_store_faults,
+                        s.borrow_coalesced, dict(srv.sharded.tail_reads))
+            if km == "cuda":
+                assert ops.LAUNCHES["dedup_embedding"] - n0 == len(batches)
+        if placement == "hash":
+            assert runs["cuda"][2] > 0
+            assert runs["cuda"][6]["gather_rows"] > 0
+        for a, b in zip(runs["host"][0], runs["cuda"][0]):
+            np.testing.assert_allclose(a, b, atol=1e-5)
+        assert runs["host"][1:] == runs["cuda"][1:]
+
+
+def test_sharded_cuda_mode_raises_on_an_oversized_borrow_set(cuda_device):
+    """A borrow set the staging tail cannot hold raises in cuda mode; it
+    is never served on the host."""
+    store, heads, batches = _sharded_scenario()
+    srv = _sharded_server(store, "cuda", borrow_capacity=1)
+    engine = EmbeddingServingEngine(srv, heads, scheduler="fifo")
+    for model, docs in batches:
+        engine.submit(model, docs)
+    with pytest.raises(RuntimeError, match="staging tail"):
+        engine.run()
+    assert engine.stats.dense_fallbacks == 0
+
+
+def test_sharded_transfer_snapshot_resolves_device_seconds(cuda_device):
+    """``transfer_snapshot`` over 2 shards folds every shard's CUDA-event
+    timings: no timer is left pending, and the device seconds, pages and
+    bytes are the shards' sums."""
+    store, heads, batches = _sharded_scenario()
+    srv = _sharded_server(store, "cuda", "sharers")
+    engine = EmbeddingServingEngine(srv, heads, overlap=True,
+                                    scheduler="fifo")
+    for model, docs in batches:
+        engine.submit(model, docs)
+    engine.run()
+    snap = srv.transfer_snapshot()
+    pools = srv.sharded.pools
+    assert all(not p.transfer._timers for p in pools)
+    assert snap["pages"] == sum(p.transfer.stats.pages for p in pools) > 0
+    assert snap["bytes"] == sum(p.transfer.stats.bytes for p in pools)
+    assert snap["seconds"] == pytest.approx(
+        sum(p.transfer.stats.seconds for p in pools))
+    assert snap["seconds"] > 0.0
+    assert engine.stats.transfer_seconds > 0.0
+
+
+def test_sharded_lm_engine_cuda_matches_torch_mode(cuda_device):
+    """The LM engine over 2 hash-placed shards in cuda mode (tensors
+    reassembled from a slab and its staging tail, prefill through
+    flash_attention) gives the greedy tokens of the torch mode on the
+    card."""
+    from repro_torch.serving import ShardedWeightServer
+    store, names, apis, plain, templates = _lm_setup()
+    cap = max(len(store.model_pages(n)) for n in names)
+    prompts = np.random.default_rng(4).integers(
+        1, 256, size=(2, 40)).astype(np.int32)
+    out = {}
+    for mode, a in (("cuda", apis), ("torch", plain)):
+        srv = ShardedWeightServer(store, cap, storage=StorageModel("dram"),
+                                  shards=2, placement="hash",
+                                  kernel_mode=mode,
+                                  devices=[cuda_device] * 2)
+        engine = LMServingEngine(srv, a, templates)
+        out[mode] = [engine.generate(m, prompts, steps=5)[0] for m in names]
+        assert engine.stats.dense_fallbacks == 0
+        assert srv.stats.borrow_pages > 0
+        assert srv.sharded.tail_reads["unblock"] > 0
+    for a, b in zip(out["cuda"], out["torch"]):
+        np.testing.assert_array_equal(a, b)

@@ -2,7 +2,7 @@
 its copies of the JAX package's framework-free modules cannot drift.
 
 The copies (obs, storage, core, configs, the scheduler, prefetcher,
-traffic generator, paged KV cache and request frontend)
+traffic generator, paged KV cache, request frontend and shard router)
 must equal their originals once ``repro.``/``repro/`` is renamed to
 ``repro_torch.``/``repro_torch/`` in import lines and ``-m`` strings;
 ``data/pipeline.py`` is the one copy allowed to be trimmed (it drops the
@@ -30,7 +30,7 @@ COPIES = [
     "core/dedup.py", "core/pagepack.py", "core/bufferpool.py",
     "core/store.py",
     "serving/scheduler.py", "serving/prefetch.py", "serving/traffic.py",
-    "serving/kvcache.py", "serving/frontend.py",
+    "serving/kvcache.py", "serving/frontend.py", "serving/router.py",
     "configs/__init__.py", "configs/base.py", "configs/arctic_480b.py",
     "configs/deepseek_7b.py", "configs/gemma2_9b.py", "configs/hymba_1_5b.py",
     "configs/kimi_k2_1t_a32b.py", "configs/mamba2_1_3b.py",
@@ -68,6 +68,7 @@ def test_port_and_smoke_import_no_jax_and_no_reference():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
             "repro_torch.db, repro_torch.convert, repro_torch.kernels, "
             "repro_torch.serving.frontend, "
+            "repro_torch.serving.shard_pool, repro_torch.launch.mesh, "
             "repro_torch.models, repro_torch.configs; "
             "leaked = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "

@@ -3,13 +3,13 @@
 
 Per-channel span time equals the virtual clock's ledger exactly (1
 shard, on the port's host simulator and on its device path in the
-``torch`` kernel mode); every served request's span carries exact stage
-identities; tracing on and off give bit-identical results; a port run's
-Chrome trace validates, round-trips and passes ``scripts/trace_report.
-py``; and the ``REPORT_FIELDS`` audit holds against the port's
-``ServeStats`` and ``launch/serve.py``.  The 2-shard cases and the six
-borrow / shard fields of the ``[shards]`` line wait for the sharded slab
-(:data:`WAITING_FOR_SHARDS`).
+``torch`` kernel mode; 2 shards in the ``torch`` kernel mode); every
+served request's span carries exact stage identities; tracing on and off
+give bit-identical results; a port run's Chrome trace validates,
+round-trips and passes ``scripts/trace_report.py``; and the
+``REPORT_FIELDS`` audit holds against the port's ``ServeStats`` and
+``launch/serve.py``, the ``[shards]`` line's six fields checked against
+a 2-shard CLI run.
 """
 import dataclasses
 import json
@@ -28,17 +28,13 @@ from repro_torch.obs import (NULL_TRACER, Tracer, to_chrome_trace,
 from repro_torch.obs.export import load_trace
 from repro_torch.serving import (BatchComputeModel, EmbeddingServingEngine,
                                  OpenLoopTraffic, ServeStats, ServingFrontend,
-                                 StorageModel, WeightServer)
+                                 ShardedWeightServer, StorageModel,
+                                 WeightServer)
 
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 BACKENDS = [("numpy", "auto"), ("device", "torch")]
-#: ServeStats fields whose report line ([shards]) comes with the sharded
-#: slab, the next slice of the port
-WAITING_FOR_SHARDS = ("borrow_pages", "borrow_seconds", "borrow_mirror_hits",
-                      "borrow_store_faults", "borrow_coalesced",
-                      "shard_batches")
 
 
 def _scenario(vocab=512, d=32, num_models=3, block=(32, 32), l=4, seed=0):
@@ -58,11 +54,18 @@ def _doc_payload(task, docs_per_req=3, seed_base=700):
     return payload
 
 
-def _traced_run(backend=BACKENDS[0], n=40, rate=400.0, tracer=None):
+def _traced_run(backend=BACKENDS[0], n=40, rate=400.0, tracer=None,
+                shards=1):
     task, store, heads = _scenario(num_models=3)
-    server = WeightServer(store, max(2, store.num_pages() // 2),
-                          storage=StorageModel("dram"), backend=backend[0],
-                          kernel_mode=backend[1])
+    if shards == 1:
+        server = WeightServer(store, max(2, store.num_pages() // 2),
+                              storage=StorageModel("dram"),
+                              backend=backend[0], kernel_mode=backend[1])
+    else:
+        server = ShardedWeightServer(store, max(4, store.num_pages() - 2),
+                                     storage=StorageModel("dram"),
+                                     shards=shards, placement="sharers",
+                                     kernel_mode=backend[1])
     engine = EmbeddingServingEngine(server, heads, scheduler="fifo")
     fe = ServingFrontend(engine, max_batch=4,
                          compute_model=BatchComputeModel())
@@ -76,9 +79,12 @@ def _traced_run(backend=BACKENDS[0], n=40, rate=400.0, tracer=None):
     return fe, st, tracer
 
 
-@pytest.mark.parametrize("backend", BACKENDS)
-def test_frontend_run_span_channels_equal_clock_exactly(backend):
-    fe, st, tracer = _traced_run(backend)
+@pytest.mark.parametrize("backend,shards", [
+    pytest.param(BACKENDS[0], 1, id="backend0"),
+    pytest.param(BACKENDS[1], 1, id="backend1"),
+    pytest.param(BACKENDS[1], 2, id="shards2-torch")])
+def test_frontend_run_span_channels_equal_clock_exactly(backend, shards):
+    fe, st, tracer = _traced_run(backend, shards=shards)
     assert len(st.request_latencies) > 0
     assert tracer.dropped == 0
     assert set(fe.clock.channels) == set(tracer.channel_seconds)
@@ -162,25 +168,44 @@ def test_chrome_trace_export_validates_and_roundtrips(tmp_path):
     assert "exact identities OK" in report.stdout
 
 
-def test_every_serve_stat_has_exactly_one_report_line():
+def test_every_serve_stat_has_exactly_one_report_line(capsys):
     """REPORT_FIELDS is the audit: every field of the port's ServeStats
     maps to one [tag] line that the port's launch/serve.py prints with
-    the mapped key; the [shards] fields wait for the sharded slab."""
+    the mapped key; the six [shards] fields appear on the line a 2-shard
+    CLI run prints, with the values of its server's stats."""
+    from repro_torch.launch.serve import main as serve_main
     fields = {f.name for f in dataclasses.fields(ServeStats)}
     assert set(REPORT_FIELDS) == fields
     known_tags = {"serve", "device", "transfer", "prefetch", "shards",
                   "faults", "traffic"}
     src = (ROOT / "src/repro_torch/launch/serve.py").read_text()
-    shards = sorted(f for f, (tag, _) in REPORT_FIELDS.items()
-                    if tag == "shards")
-    assert shards == sorted(WAITING_FOR_SHARDS)
     for field, (tag, key) in REPORT_FIELDS.items():
         assert tag in known_tags, field
-        if field in WAITING_FOR_SHARDS:
-            continue
         assert f"[{tag}]" in src, f"{field}: no [{tag}] line"
         for k in key.split("/"):
             assert k in src, f"{field}: key {k!r} not printed"
+    _, server = serve_main(["--shards", "2", "--placement", "hash",
+                            "--kernel-mode", "torch", "--models", "4",
+                            "--batches", "12"])
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("[shards]")]
+    assert len(line) == 1, line
+    s = server.stats
+    printed = {
+        "shard_batches": f"batches_per_shard="
+                         f"{dict(sorted(s.shard_batches.items()))}",
+        "borrow_pages": f"borrows={s.borrow_pages}",
+        "borrow_mirror_hits": f"mirror={s.borrow_mirror_hits}",
+        "borrow_store_faults": f"owner_faults={s.borrow_store_faults}",
+        "borrow_coalesced": f"coalesced={s.borrow_coalesced}",
+        "borrow_seconds": f"borrow={s.borrow_seconds * 1e3:.2f}ms"}
+    shards = sorted(f for f, (tag, _) in REPORT_FIELDS.items()
+                    if tag == "shards")
+    assert shards == sorted(printed)
+    for field, text in printed.items():
+        assert REPORT_FIELDS[field][1] in text
+        assert text in line[0], (field, text, line[0])
+    assert s.borrow_pages > 0
 
 
 def test_cli_trace_and_report_json(tmp_path, capsys):

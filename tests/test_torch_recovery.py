@@ -13,9 +13,9 @@ Parity: after k dispatches the port's ``snapshot()`` equals the
 reference's key for key (but the engine's wall-clock compute seconds,
 which each package measures on its own host), and a snapshot the JAX
 frontend wrote restores into the port's frontend and finishes with the
-reference's results.
-(The all-flags composition run needs ``--shards 2``: it waits for the
-sharded slab.)
+reference's results.  The all-flags composition run (traffic + faults
++ ``--shards 2`` + trace + report-json) runs through the CLI in the
+``torch`` kernel mode.
 """
 import json
 import os
@@ -184,6 +184,37 @@ def test_serve_cli_flag_validation():
         serve_main(["--snapshot", "/tmp/x.json"])
     with pytest.raises(SystemExit, match="--kill-after requires"):
         serve_main(["--traffic", "requests=5", "--kill-after", "1"])
+    with pytest.raises(SystemExit, match="--shards > 1 requires"):
+        serve_main(["--shards", "2", "--backend", "numpy"])
+
+
+def test_composition_all_flags_together(tmp_path, capsys):
+    """One launcher run with traffic + faults + 2 shards + trace +
+    report-json at once (the device path in the ``torch`` kernel mode):
+    every report line prints, the virtual clock conserves (asserted
+    inside fe.run / _export_obs), and the exported trace validates."""
+    from repro_torch.obs import validate_chrome_trace
+    trace = str(tmp_path / "trace.json")
+    report = str(tmp_path / "report.json")
+    serve_main([
+        "--store-url", f"sqlite:///{tmp_path / 'm.db'}",
+        "--faults", "transient=0.05,seed=7",
+        "--traffic", "rate=300,requests=40,slo_ms=200,max_batch=4",
+        "--shards", "2", "--backend", "device", "--kernel-mode", "torch",
+        "--models", "4", "--vocab", "512",
+        "--trace", trace, "--report-json", report])
+    out = capsys.readouterr().out
+    for tag in ("[store-url]", "[faults]", "[shards]", "[traffic]",
+                "[serve]", "[trace]", "[report-json]"):
+        assert any(ln.startswith(tag) for ln in out.splitlines()), \
+            f"missing report line {tag}:\n{out}"
+    assert "mode=torch" in out
+    with open(trace) as f:
+        assert validate_chrome_trace(json.load(f)) == []
+    with open(report) as f:
+        snap = json.load(f)
+    assert any(k.startswith("serve.") for k in snap)
+    assert any(k.startswith("clock.") for k in snap)
 
 
 # ------------------------------------------------------ parity with JAX --

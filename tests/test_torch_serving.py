@@ -130,8 +130,9 @@ def test_store_from_arrays_serves_the_same_logits(reference):
 
 
 def test_port_db_roundtrip_and_unported_entry_points(tmp_path):
-    """The port commits and reopens its own database; sharded slabs say
-    which slice brings them; both engines default to the card."""
+    """The port commits and reopens its own database; ``shards=2`` gives a
+    ShardedWeightServer that serves the store's logits (1e-5); both
+    engines default to the card, sharded or not."""
     from repro_torch.data.pipeline import SyntheticTextTask
     from repro_torch.launch.serve import build_store
     task = SyntheticTextTask(vocab=256, d=32, seed=0)
@@ -144,11 +145,27 @@ def test_port_db_roundtrip_and_unported_entry_points(tmp_path):
     db.close()
     live = DedupDB.open(f"sqlite:///{tmp_path / 'port.db'}")
     assert live.models() == sorted(store.dedup.models)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        live.weight_server(shards=2, kernel_mode="torch")
+    from repro_torch.serving import ShardedWeightServer
+    sharded = live.weight_server(shards=2, kernel_mode="torch",
+                                 storage=StorageModel("dram"))
+    assert isinstance(sharded, ShardedWeightServer)
+    assert sharded.num_shards == 2 and sharded.device_pool.mode() == "torch"
+    engine = EmbeddingServingEngine(sharded, heads)
+    for v, model in enumerate(sorted(heads)):
+        docs, _ = task.sample(8, variant=v, seed=40 + v)
+        engine.submit(model, docs)
+        engine.run(max_batches=1)
+        want = store.materialize(model, "embedding")[docs].mean(axis=1) \
+            @ heads[model]
+        np.testing.assert_allclose(engine.last_logits, want, atol=1e-5)
+    assert engine.stats.device_batches == len(heads)
+    with pytest.raises(ValueError, match="compute_backend='device'"):
+        live.weight_server(shards=2, compute_backend="numpy")
     if not torch.cuda.is_available():       # the default is the card
         with pytest.raises(RuntimeError):
             live.serve_embedding(heads, storage=StorageModel("dram"))
+        with pytest.raises(RuntimeError):
+            live.weight_server(shards=2, storage=StorageModel("dram"))
         with pytest.raises(RuntimeError):
             live.serve_lm({}, {}, storage=StorageModel("dram"))
     live.close()

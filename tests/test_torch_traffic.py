@@ -7,8 +7,8 @@ formation / forced dispatch / shedding against the naive control, the
 frontend -> prefetcher rate feed, and frontend-served results equal to
 direct engine submission (embedding and LM).  The port's engine runs on
 its host simulator (``backend="numpy"``) and on its device path in the
-``torch`` kernel mode; the ``shards=2`` case of the embedding test waits
-for the sharded slab.
+``torch`` kernel mode; the embedding test also runs over 2 shards
+(``ShardedWeightServer``) in the ``torch`` and ``host`` kernel modes.
 
 Parity with the reference, on the same inputs:
 
@@ -49,7 +49,8 @@ from repro_torch.launch.serve import build_store
 from repro_torch.serving import (BatchComputeModel, EmbeddingServingEngine,
                                  LMServingEngine, OpenLoopTraffic, Prefetcher,
                                  Request, ServeStats, ServingFrontend,
-                                 StorageModel, TrafficSpec, VirtualClock,
+                                 ShardedWeightServer, StorageModel,
+                                 TrafficSpec, VirtualClock,
                                  WeightServer, zipf_weights, zoo_popularity)
 
 torch.set_num_threads(2)
@@ -333,16 +334,26 @@ def test_frontend_feeds_observed_rates_to_prefetcher(backend):
 
 
 # ------------------------------------------------- acceptance bit-equality --
-@pytest.mark.parametrize("backend", BACKENDS)
-def test_frontend_logits_match_direct_submission_embedding(backend):
+@pytest.mark.parametrize("backend,shards", [
+    pytest.param(BACKENDS[0], 1, id="backend0"),
+    pytest.param(BACKENDS[1], 1, id="backend1"),
+    pytest.param(("device", "torch"), 2, id="shards2-torch"),
+    pytest.param(("device", "host"), 2, id="shards2-host")])
+def test_frontend_logits_match_direct_submission_embedding(backend, shards):
     """Frontend-served logits are bit-identical to replaying the same
-    batches through direct engine submission (1 shard)."""
+    batches through direct engine submission (1 and 2 shards)."""
     task, store, heads = _scenario(vocab=512, num_models=4)
     cap = max(4, store.num_pages() - 2)
 
     def make():
-        return EmbeddingServingEngine(_server(store, cap, backend=backend),
-                                      heads, scheduler="fifo")
+        if shards == 1:
+            server = _server(store, cap, backend=backend)
+        else:
+            server = ShardedWeightServer(store, cap,
+                                         storage=StorageModel("dram"),
+                                         shards=shards, placement="sharers",
+                                         kernel_mode=backend[1])
+        return EmbeddingServingEngine(server, heads, scheduler="fifo")
 
     models = [f"word2vec-v{v}" for v in range(4)]
     gen = OpenLoopTraffic(models, rate=400.0, zipf_alpha=1.1, slo_s=0.5,
