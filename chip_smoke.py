@@ -109,10 +109,32 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      --snapshot ... --kill-after 3`` on the card, then resumed:
      ``[restart] resumed from``, offered == served + shed == 40 and
      ``dense_fallbacks=0``;
-  7. a ``{"kernels": [...]}`` line with every ported kernel's launches
-     on its path (phases 2b, 4, 5, 5b, 5c and 6), its times and its
+  7. the other families — ``[flash-families]``: ``flash_attention`` at
+     their full-width shapes (hymba's 25 / 5 heads of 64 with and without
+     a 1024-key window, phi-3-vision's hd 96, kimi-k2's hd 112, arctic's
+     56 / 8, whisper's non-causal encoder and cross-attention over 1500
+     keys), bf16, each against its plain version and timed beside its
+     bound and SDPA; ``[lm-hybrid]`` (the slice's path): hymba-1.5b at
+     full width, depth cut 32 -> 4 (global layers 0, 2, 3; a 1024-token
+     window on layer 1), two variants (v1 redraws the last layer's MLP
+     and mamba projections) built with the index signed on the card and
+     committed to SQLite, served through ``DedupDB.serve_lm`` in cuda
+     mode: 4 batches alternating the variants, 2 prompts of 2048 tokens
+     and 16 greedy steps, every batch on the device and 16
+     ``flash_attention`` launches on the wgmma body; torch mode on the
+     card gives prefill logits within ``LM_LOGIT_TOL`` and one batch in
+     fp32 the same greedy tokens; prefill / decode times and a profile
+     (``[hy-profile]``); ``[families]``: every arch at its reduced config
+     in fp32, prefill of 24 tokens and 3 decode steps through the kernel
+     route against the plain attention (logits 1e-4, tokens equal; whisper
+     takes frames, phi-3-vision ``image_embeds``); ``[encdec]``:
+     whisper-small at full size in bf16 (12 + 12 layers, 1500 frames, an
+     8-token prompt, 16 steps) through ``registry.build``, prefill logits
+     within ``LM_LOGIT_TOL`` of the plain attention, fp32 tokens equal;
+  8. a ``{"kernels": [...]}`` line with every ported kernel's launches
+     on its path (phases 2b, 4, 5, 5b, 5c, 6 and 7), its times and its
      bound;
-  8. last line: ``{"ok": true, "device": {...}}``.
+  9. last line: ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure (the script catches nothing), so any
 failed phase ends the run with a non-zero exit code and no result line.
@@ -167,6 +189,17 @@ FLASH_SHAPES = [("lm-noncausal", 4, 512, 32, 128, False),
                 ("lm-b16", 16, 512, 32, 128, True),
                 ("hd64", 4, 512, 64, 64, True),
                 ("hd256", 4, 512, 16, 256, True)]
+# flash_attention at the other families' full-width shapes, bf16 (the
+# wgmma body), each held against the plain version (2e-2) and timed beside
+# SDPA where SDPA computes the same function (no window): (label, B, Sq,
+# Skv, H, K, hd, causal, window)
+FAMILY_FLASH = [("hymba-local", 2, 2048, 2048, 25, 5, 64, True, 1024),
+                ("hymba-global", 2, 2048, 2048, 25, 5, 64, True, 0),
+                ("phi3v", 1, 2048, 2048, 32, 32, 96, True, 0),
+                ("kimi-k2", 1, 2048, 2048, 64, 8, 112, True, 0),
+                ("arctic", 1, 2048, 2048, 56, 8, 128, True, 0),
+                ("whisper-enc", 1, 1500, 1500, 12, 12, 64, False, 0),
+                ("whisper-cross", 1, 8, 1500, 12, 12, 64, False, 0)]
 # dedup_matmul at the FFNN shape with the K split forced (timed only)
 MATMUL_SPLITS = (1, 4, 8, 16, 32)
 # dedup_embedding at a bytes-bound shape (timed only): ids over a slab of
@@ -176,6 +209,18 @@ GATHER_IDS, GATHER_ROWS = 65536, 262144
 LSH_CASES = [(16, 64, 16, 2.0), (33, 100, 24, 4.0), (128, 512, 128, 1.0)]
 # blocks of lm-v0 held against the reference's per-block numpy signatures
 LSH_SAMPLE = 20480
+# the hybrid phase (the slice's path): hymba-1.5b at full width (d_model
+# 1600, 25 heads over 5 KV heads of 64, d_ff 5504, Mamba-2 SSD with 50
+# heads of 64 and a state of 16, vocabulary 32,001), depth cut 32 -> 4,
+# which leaves global layers 0, 2, 3 and a 1024-token window on layer 1;
+# 4 batches alternating two variants, 2 prompts of 2048 tokens, 16 steps
+HY_ARCH, HY_DEPTH = "hymba-1.5b", 4
+HY_BATCHES, HY_PROMPTS, HY_PROMPT_LEN = 4, 2, 2048
+# every arch at its reduced config in fp32: prefill of 24 tokens, 3 steps
+FAM_PROMPT_LEN, FAM_STEPS, FAM_LOGIT_TOL = 24, 3, 1e-4
+# whisper-small at its full size in bf16: 1 x 1500 frames, an 8-token
+# prompt, 16 greedy steps, through registry.build
+ED_ARCH, ED_FRAMES, ED_PROMPT_LEN, ED_MAX_DEC = "whisper-small", 1500, 8, 448
 # the request tier on the word2vec store: open-loop requests of 4
 # documents of 16 tokens, Zipf over the 4 variants, batches of up to 8
 # requests (a full dispatch is the serving shape, 32 x 16 ids); the ssd
@@ -909,6 +954,67 @@ def flash_phase(torch, ops, ref, cfg):
     return rec
 
 
+def visible_pairs(Sq, Skv, causal, window):
+    """(query, key) pairs the mask lets through, per (batch, head)."""
+    import numpy as np
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def family_flash_phase(torch, ops, ref):
+    """flash_attention at the other families' full-width shapes (bf16, the
+    wgmma body): each against its plain version (2e-2) and timed beside
+    its bound and, where no window masks it, beside SDPA.  Returns the
+    records."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    recs = []
+    for label, B, Sq, Skv, H, K, hd, causal, window in FAMILY_FLASH:
+        q = torch.randn(B, Sq, H, hd, device=dev, generator=g).bfloat16()
+        k, v = (torch.randn(B, Skv, K, hd, device=dev, generator=g)
+                .bfloat16() for _ in range(2))
+        body = ops.flash_variant(q.dtype, hd)
+        w0 = ops.VARIANT_LAUNCHES["flash_attention"][body]
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if body != "wgmma" or \
+                ops.VARIANT_LAUNCHES["flash_attention"][body] != w0 + 1:
+            raise AssertionError(f"flash_attention {label} ran {body}, not "
+                                 f"the wgmma body")
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), rtol=2e-2,
+                              atol=2e-2):
+            raise AssertionError(f"flash_attention {label} differs from "
+                                 f"its plain version by {err} (tol 2e-2)")
+        del want
+        k_ms = graph_ms(torch, lambda: ops.flash_attention(
+            q, k, v, causal=causal, window=window))
+        p_ms = graph_ms(torch, lambda: ref.flash_attention(
+            q, k, v, causal=causal, window=window), calls=2, replays=3)
+        s_ms = None
+        if not window:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            s_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=H != K))
+        pairs = B * H * visible_pairs(Sq, Skv, causal, window)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        b_ms, b_by = bound_ms(nbytes, 4 * pairs * hd, BF16_FLOP_PER_S)
+        rec = dict(label=label, shape=f"q[{B},{Sq},{H},{hd}] k,v[{B},{Skv},"
+                   f"{K},{hd}]", causal=causal, window=window, body=body,
+                   max_abs_err=err, tolerance=2e-2, ms=k_ms, plain_ms=p_ms,
+                   sdpa_ms=s_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"[flash-families] {json.dumps(rec)}")
+        recs.append(rec)
+    log("[flash-families] sdpa_ms: F.scaled_dot_product_attention(q, k, v, "
+        "is_causal=causal, enable_gqa=H != K) on [B, H, S, hd] contiguous "
+        "bf16 copies of the same inputs; none where a window masks keys")
+    return recs
+
+
 def lsh_check(torch, ops, ref, x, proj, bias, r, what):
     """lsh_signature against its plain version on the card: equal except
     where the exact value lies within 1e-4 of a bucket edge.  Returns
@@ -1086,7 +1192,7 @@ def time_lm_steps(torch, engine, api, prompts):
     engine's resident model (CUDA events, after a warm-up)."""
     params = engine._params
     toks = torch.as_tensor(prompts, device=params["embed"].device)
-    max_len = LM_PROMPT_LEN + LM_STEPS
+    max_len = prompts.shape[1] + LM_STEPS
 
     def run(n_decode):
         logits, cache = api.prefill(params, {"tokens": toks}, max_len)
@@ -1112,7 +1218,7 @@ def time_lm_steps(torch, engine, api, prompts):
     return prefill, decode
 
 
-def profile_lm_steps(torch, engine, api, prompts) -> None:
+def profile_lm_steps(torch, engine, api, prompts, tag="[lm-profile]"):
     """One prefill and the decode steps of a batch under torch.profiler:
     device-busy share of the window and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -1122,7 +1228,7 @@ def profile_lm_steps(torch, engine, api, prompts) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         logits, cache = api.prefill(params, {"tokens": toks},
-                                    LM_PROMPT_LEN + LM_STEPS)
+                                    prompts.shape[1] + LM_STEPS)
         for _ in range(LM_STEPS - 1):
             logits, cache = api.decode(params, cache, logits.argmax(-1))
         torch.cuda.synchronize()
@@ -1131,11 +1237,66 @@ def profile_lm_steps(torch, engine, api, prompts) -> None:
             for e in prof.key_averages()
             if e.device_time_total > 0 and e.device_type.name == "CUDA"]
     busy_us = sum(r[1] for r in rows)
-    log(f"[lm-profile] wall={wall * 1e3:.1f}ms device_busy="
+    log(f"{tag} wall={wall * 1e3:.1f}ms device_busy="
         f"{busy_us / 1e3:.3f}ms busy_share={busy_us / 1e6 / wall:.4f} "
         f"(1 prefill + {LM_STEPS - 1} decode steps)")
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:10]:
-        log(f"[lm-profile] {us / 1e3:9.3f}ms {n:6d}x  {key[:90]}")
+        log(f"{tag} {us / 1e3:9.3f}ms {n:6d}x  {key[:90]}")
+
+
+def check_modes(torch, cfg, url, plain_apis, lm, lm32, traffic, capacity,
+                engine, served, tag):
+    """The traffic served once more in torch mode on the card (plain
+    attention): every batch's last-token prefill logits within
+    LM_LOGIT_TOL of the cuda run's; then the last batch rerun in fp32 in
+    both modes: the same greedy tokens.  Returns the torch-mode engine
+    and its database."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models import build
+    t_engine, t_db, t_served, _, t_wall = serve_lm(
+        torch, url, plain_apis, lm.rebuild, traffic, capacity, "torch")
+    worst = 0.0
+    for (m, a, ta), (tm, b, tb), (_, prompts) in zip(served, t_served,
+                                                     traffic):
+        n = len(prompts)
+        if m != tm or a.shape != (n, 1, cfg.vocab) \
+                or not np.isfinite(a).all() or ta.shape != (n, LM_STEPS):
+            raise AssertionError(f"{tag} batch of {m}: logits {a.shape}, "
+                                 f"tokens {ta.shape}, finite="
+                                 f"{np.isfinite(a).all()}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    scale = max(float(np.abs(b).max()) for _, b, _ in t_served)
+    log(f"{tag} prefill logits cuda vs torch mode (bf16): "
+        f"max_abs_err={worst:.3e} (tol {LM_LOGIT_TOL}, max |logit| "
+        f"{scale:.2f}) torch_wall={t_wall:.3f}s")
+    if worst > LM_LOGIT_TOL:
+        raise AssertionError(f"{tag} prefill logits differ by {worst} "
+                             f"(> {LM_LOGIT_TOL})")
+    # the last batch's variant is resident: the rerun moves no page
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model, prompts = traffic[-1]
+    bf16_last = {"kernel": served[-1][1], "plain": t_served[-1][1]}
+    toks32, logits32 = {}, {}
+    for eng, attention in ((engine, "kernel"), (t_engine, "plain")):
+        eng.templates = {m: {"rebuild": lm32.rebuild} for m in eng.templates}
+        eng.apis = {m: build(cfg32, attention=attention) for m in eng.apis}
+        eng._resident_model = None
+        toks32[attention], _ = eng.generate(model, prompts, LM_STEPS)
+        logits32[attention] = eng.last_logits.float().cpu().numpy()
+    same = np.array_equal(toks32["kernel"], toks32["plain"])
+    log(f"{tag} fp32 greedy tokens cuda vs torch mode: equal={same} "
+        f"({toks32['kernel'].shape}); last batch's prefill logits, "
+        f"distance from the fp32 model: cuda bf16 "
+        f"{float(np.abs(bf16_last['kernel'] - logits32['kernel']).max()):.3e}"
+        f", torch bf16 "
+        f"{float(np.abs(bf16_last['plain'] - logits32['plain']).max()):.3e}, "
+        f"fp32 cuda vs torch "
+        f"{float(np.abs(logits32['kernel'] - logits32['plain']).max()):.3e}")
+    if not same:
+        raise AssertionError(f"{tag} fp32 greedy tokens differ between cuda "
+                             f"and torch mode")
+    return t_engine, t_db
 
 
 def lm_phase(torch, ops, ref, tmpdir):
@@ -1200,51 +1361,11 @@ def lm_phase(torch, ops, ref, tmpdir):
         f"({LM_PROMPTS} tokens)")
     profile_lm_steps(torch, engine, kernel_apis["lm-v1"], traffic[-1][1])
 
-    # the same traffic in torch mode on the card, plain attention
-    t_engine, t_db, t_served, _, t_wall = serve_lm(
-        torch, url, plain_apis, lm.rebuild, traffic, capacity, "torch")
-    worst = 0.0
-    for (m, a, ta), (tm, b, tb) in zip(served, t_served):
-        if m != tm or a.shape != (LM_PROMPTS, 1, cfg.vocab) \
-                or not np.isfinite(a).all() or ta.shape != (LM_PROMPTS,
-                                                            LM_STEPS):
-            raise AssertionError(f"LM batch of {m}: logits {a.shape}, "
-                                 f"tokens {ta.shape}, finite="
-                                 f"{np.isfinite(a).all()}")
-        worst = max(worst, float(np.abs(a - b).max()))
-    scale = max(float(np.abs(b).max()) for _, b, _ in t_served)
-    log(f"[lm-check] prefill logits cuda vs torch mode (bf16): "
-        f"max_abs_err={worst:.3e} (tol {LM_LOGIT_TOL}, max |logit| "
-        f"{scale:.2f}) torch_wall={t_wall:.3f}s")
-    if worst > LM_LOGIT_TOL:
-        raise AssertionError(f"LM prefill logits differ by {worst} "
-                             f"(> {LM_LOGIT_TOL})")
-
-    # one batch rerun in fp32 in both modes: the same greedy tokens (the
-    # last batch's variant is resident: the rerun moves no page)
-    import dataclasses
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    model, prompts = traffic[-1]
-    bf16_last = {"kernel": served[-1][1], "plain": t_served[-1][1]}
-    toks32, logits32 = {}, {}
-    for eng, attention in ((engine, "kernel"), (t_engine, "plain")):
-        eng.templates = {m: {"rebuild": lm32.rebuild} for m in eng.templates}
-        eng.apis = {m: build(cfg32, attention=attention) for m in eng.apis}
-        eng._resident_model = None
-        toks32[attention], _ = eng.generate(model, prompts, LM_STEPS)
-        logits32[attention] = eng.last_logits.float().cpu().numpy()
-    same = np.array_equal(toks32["kernel"], toks32["plain"])
-    log(f"[lm-check] fp32 greedy tokens cuda vs torch mode: equal={same} "
-        f"({toks32['kernel'].shape}); last batch's prefill logits, "
-        f"distance from the fp32 model: cuda bf16 "
-        f"{float(np.abs(bf16_last['kernel'] - logits32['kernel']).max()):.3e}"
-        f", torch bf16 "
-        f"{float(np.abs(bf16_last['plain'] - logits32['plain']).max()):.3e}, "
-        f"fp32 cuda vs torch "
-        f"{float(np.abs(logits32['kernel'] - logits32['plain']).max()):.3e}")
-    if not same:
-        raise AssertionError("fp32 greedy tokens differ between cuda and "
-                             "torch mode")
+    # the same traffic in torch mode on the card, plain attention; one
+    # batch rerun in fp32 in both modes
+    t_engine, t_db = check_modes(torch, cfg, url, plain_apis, lm, lm32,
+                                 traffic, capacity, engine, served,
+                                 "[lm-check]")
     db.close()
     t_db.close()
     del engine, t_engine
@@ -1256,6 +1377,299 @@ def lm_phase(torch, ops, ref, tmpdir):
     return ({"flash_attention": flash, "lsh_signature": lsh_rec},
             {"flash_attention": launches["flash_attention"],
              "lsh_signature": store_rec["lsh_launches"]}, traffic_launches)
+
+
+# ------------------------------------------------------ other families --
+def hybrid_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(HY_ARCH), num_layers=HY_DEPTH)
+
+
+def hybrid_store(cfg, url):
+    """v0 from ``init_params``; v1 = v0 with the last layer's MLP and
+    mamba ``in_proj`` / ``out_proj`` drawn again.  Per-layer 2-D tensors,
+    64x64 blocks, 8 a page, ``LSHConfig(r=0.25)``, the index signed on the
+    card (every launch on the tf32x3 body), committed to SQLite.  Returns
+    the carried tensors served in bf16 and in fp32 and a record of the
+    build."""
+    import math
+    import numpy as np
+    from repro_torch.convert import lm_tensors
+    from repro_torch.core import DedupConfig, LSHConfig, StoreConfig
+    from repro_torch.core.device_index import DeviceModelStore
+    from repro_torch.db import DedupDB
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params
+    from repro_torch.storage import open_backend
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED)
+    lm = lm_tensors(params, dtype=cfg.dtype, per_layer=True)
+    lm32 = lm_tensors(params, dtype="float32", per_layer=True)
+    rng = np.random.default_rng(SEED + 2)
+    tuned = dict(lm.tensors)
+    last = HY_DEPTH - 1
+    out_std = 0.02 / math.sqrt(2 * HY_DEPTH)
+    for name, std in (("mlp/w1", 0.02), ("mlp/w3", 0.02),
+                      ("mlp/w2", out_std), ("mamba/in_proj", 0.02),
+                      ("mamba/out_proj", out_std)):
+        key = f"blocks/{last}/{name}"
+        x = rng.standard_normal(tuned[key].shape, dtype=np.float32)
+        x *= np.float32(std)
+        tuned[key] = x
+    t_init = time.perf_counter() - t0
+    st = DeviceModelStore(StoreConfig(
+        dedup=DedupConfig(block_shape=(64, 64), lsh=LSHConfig(r=0.25),
+                          validate=False),
+        blocks_per_page=8), index_mode="cuda")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    st.register("hy-v0", lm.tensors)
+    st.register("hy-v1", tuned)
+    pages = st.num_pages()                          # packs
+    t_build = time.perf_counter() - t0
+    lsh_launches = ops.LAUNCHES["lsh_signature"]
+    all_tf32x3(ops, lsh_launches, "hybrid build")
+    t0 = time.perf_counter()
+    DedupDB(st, open_backend(url)).commit()
+    t_commit = time.perf_counter() - t0
+    ix = st.dedup.index_stats
+    rec = dict(pages=pages, build_s=t_build, commit_s=t_commit,
+               variant_pages=[len(st.model_pages(m))
+                              for m in ("hy-v0", "hy-v1")],
+               params=sum(a.size for a in lm.tensors.values()),
+               blocks=sum(a.size for a in lm.tensors.values()) // 4096,
+               lsh_launches=lsh_launches)
+    log(f"[hy-store] {HY_ARCH} depth={HY_DEPTH} d_model={cfg.d_model} "
+        f"vocab={cfg.vocab} params_a_variant={rec['params']} "
+        f"blocks_a_variant={rec['blocks']} pages={pages} "
+        f"variant_pages={rec['variant_pages']} "
+        f"dense={st.dense_bytes() / 2 ** 20:.0f}MiB "
+        f"dedup={st.storage_bytes() / 2 ** 20:.0f}MiB init={t_init:.1f}s "
+        f"build={t_build:.1f}s commit={t_commit:.1f}s {index_line(ix)} "
+        f"lsh_launches={lsh_launches} (all tf32x3)")
+    return lm, lm32, rec
+
+
+def hybrid_phase(torch, ops, tmpdir):
+    """The slice's path: hymba-1.5b at full width served out of SQLite
+    through ``DedupDB.serve_lm`` in cuda mode.  Returns the launches of
+    flash_attention (serving) and lsh_signature (the build)."""
+    import numpy as np
+    from repro_torch.models import build
+    from repro_torch.models.transformer import build_groups
+    cfg = hybrid_config()
+    windows = build_groups(cfg)[0].windows
+    if windows != (0, cfg.sliding_window, 0, 0):
+        raise AssertionError(f"hymba depth {HY_DEPTH}: windows {windows}, "
+                             f"wanted global 0, 2, 3 and a local layer 1")
+    url = f"sqlite:///{Path(tmpdir) / 'hymba.db'}"
+    lm, lm32, rec = hybrid_store(cfg, url)
+    rng = np.random.default_rng(SEED + 8)
+    traffic = [(f"hy-v{b % 2}",
+                rng.integers(1, cfg.vocab, size=(HY_PROMPTS, HY_PROMPT_LEN))
+                .astype(np.int32)) for b in range(HY_BATCHES)]
+    capacity = max(rec["variant_pages"])
+    kernel_apis = {m: build(cfg) for m in ("hy-v0", "hy-v1")}
+    plain_apis = {m: build(cfg, attention="plain") for m in kernel_apis}
+
+    ops.reset_launches()
+    engine, db, served, switches, wall = serve_lm(
+        torch, url, kernel_apis, lm.rebuild, traffic, capacity, "cuda")
+    launches = dict(ops.LAUNCHES)
+    bodies = dict(ops.VARIANT_LAUNCHES["flash_attention"])
+    st = engine.stats
+    pool = engine.server.device_pool
+    log(f"[lm-hybrid] launches={launches} flash_attention by body: {bodies}")
+    tokens = HY_BATCHES * HY_PROMPTS * LM_STEPS
+    log(f"[lm-hybrid] batches={st.batches} device_batches="
+        f"{st.device_batches} dense_fallbacks={st.dense_fallbacks} "
+        f"slab={pool.capacity} loads={pool.loads} evicts={pool.evicts} "
+        f"wall={wall:.3f}s compute={st.compute_seconds:.3f}s "
+        f"tokens_per_s_wall={tokens / wall:.1f} switch_first="
+        f"{switches[0]:.3f}s switch_rest_mean="
+        f"{float(np.mean(switches[1:])):.3f}s pages_moved="
+        f"{st.transfer_pages} transfer_device="
+        f"{st.transfer_seconds * 1e3:.1f}ms")
+    if st.batches != HY_BATCHES or st.device_batches != HY_BATCHES:
+        raise AssertionError(f"[lm-hybrid] device_batches="
+                             f"{st.device_batches} of {st.batches}, wanted "
+                             f"{HY_BATCHES}")
+    if st.dense_fallbacks != 0:
+        raise AssertionError(f"[lm-hybrid] dense_fallbacks="
+                             f"{st.dense_fallbacks}")
+    want = HY_DEPTH * HY_BATCHES
+    if launches["flash_attention"] != want \
+            or bodies != {"wgmma": want, "fma": 0}:
+        raise AssertionError(f"[lm-hybrid] flash_attention launches "
+                             f"{bodies}, wanted {want} on the wgmma body")
+    prefill_ms, decode_ms = time_lm_steps(torch, engine,
+                                          kernel_apis["hy-v1"],
+                                          traffic[-1][1])
+    log(f"[lm-hybrid] prefill={prefill_ms:.2f}ms ({HY_PROMPTS}x"
+        f"{HY_PROMPT_LEN} tokens) decode={decode_ms:.3f}ms a step "
+        f"({HY_PROMPTS} tokens)")
+    profile_lm_steps(torch, engine, kernel_apis["hy-v1"], traffic[-1][1],
+                     tag="[hy-profile]")
+    t_engine, t_db = check_modes(torch, cfg, url, plain_apis, lm, lm32,
+                                 traffic, capacity, engine, served,
+                                 "[lm-hybrid]")
+    db.close()
+    t_db.close()
+    return launches["flash_attention"], rec["lsh_launches"]
+
+
+def _family_tree(cfg):
+    from repro_torch.models import encdec, transformer
+    return encdec.init_params(cfg, SEED, max_dec=64) if cfg.encdec \
+        else transformer.init_params(cfg, SEED)
+
+
+def families_phase(torch, ops):
+    """Every arch at its reduced config in fp32 on the card: prefill and
+    greedy decode through the kernel route against the plain attention.
+    Returns flash_attention's launches of the kernel runs."""
+    import numpy as np
+    from repro_torch.configs import get_config, list_archs, reduced
+    from repro_torch.convert import lm_tensors
+    from repro_torch.models import build
+    dev = torch.device("cuda")
+    launches = 0
+    for arch in list_archs():
+        cfg = reduced(get_config(arch))
+        lm = lm_tensors(_family_tree(cfg), dtype=cfg.dtype)
+        params = lm.rebuild(lm.tensors, device=dev)
+        rng = np.random.default_rng(SEED + 3)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            1, cfg.vocab, size=(2, FAM_PROMPT_LEN)).astype(np.int32)).to(dev)}
+        if cfg.encdec:
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (2, 40, cfg.d_model)).astype(np.float32)).to(dev)
+        if cfg.vlm_stub:
+            batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.num_patches, cfg.d_model)).astype(np.float32)).to(dev)
+        max_len = FAM_PROMPT_LEN + FAM_STEPS + (
+            cfg.num_patches if cfg.vlm_stub else 0)
+        out = {}
+        for attention in ("kernel", "plain"):
+            api = build(cfg, attention=attention)
+            ops.reset_launches()
+            logits, cache = api.prefill(params, batch, max_len)
+            steps = [logits]
+            for _ in range(FAM_STEPS):
+                logits, cache = api.decode(params, cache,
+                                           steps[-1].argmax(-1))
+                steps.append(logits)
+            torch.cuda.synchronize()
+            out[attention] = ([x.float().cpu().numpy() for x in steps],
+                              dict(ops.VARIANT_LAUNCHES["flash_attention"]))
+        want = 0 if cfg.family == "ssm" else cfg.num_layers + (
+            cfg.enc_layers + cfg.num_layers if cfg.encdec else 0)
+        kl, bodies = out["kernel"]
+        pl, plain_bodies = out["plain"]
+        err = max(float(np.abs(a - b).max()) for a, b in zip(kl, pl))
+        same = all(np.array_equal(a.argmax(-1), b.argmax(-1))
+                   for a, b in zip(kl, pl))
+        log(f"[families] {arch} family={cfg.family} groups="
+            f"{_groups_line(cfg)} flash={bodies} max_abs_err={err:.3e} "
+            f"(tol {FAM_LOGIT_TOL}) tokens_equal={same}")
+        if bodies != {"wgmma": 0, "fma": want} or sum(plain_bodies.values()):
+            raise AssertionError(f"[families] {arch}: flash_attention "
+                                 f"{bodies} (plain {plain_bodies}), wanted "
+                                 f"{want} on the fma body")
+        if err > FAM_LOGIT_TOL or not same or not all(
+                np.isfinite(a).all() for a in kl):
+            raise AssertionError(f"[families] {arch}: logits differ by "
+                                 f"{err} (tol {FAM_LOGIT_TOL}), tokens "
+                                 f"equal={same}")
+        launches += want
+    return launches
+
+
+def _groups_line(cfg):
+    if cfg.encdec:
+        return f"enc{cfg.enc_layers}+dec{cfg.num_layers}"
+    from repro_torch.models.transformer import build_groups
+    return "+".join(f"{g.kind}{g.n}" for g in build_groups(cfg))
+
+
+def encdec_phase(torch, ops):
+    """whisper-small at its full size in bf16 through ``registry.build``:
+    1 x 1500 frames and an 8-token prompt, 16 greedy steps, the kernel
+    route against the plain attention (prefill logits within
+    LM_LOGIT_TOL), then fp32 greedy tokens equal.  Returns
+    flash_attention's launches of the bf16 kernel run."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_tensors
+    from repro_torch.models import build, encdec
+    dev = torch.device("cuda")
+    cfg = get_config(ED_ARCH)
+    t0 = time.perf_counter()
+    tree = encdec.init_params(cfg, SEED, max_dec=ED_MAX_DEC)
+    rng = np.random.default_rng(SEED + 4)
+    frames = torch.from_numpy(rng.standard_normal(
+        (1, ED_FRAMES, cfg.d_model)).astype(np.float32)).to(dev)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab, size=(1, ED_PROMPT_LEN)).astype(np.int32)).to(dev)
+    batch = {"frames": frames, "tokens": tokens}
+    max_len = ED_PROMPT_LEN + LM_STEPS
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        lm = lm_tensors(tree, dtype=dtype)
+        params = lm.rebuild(lm.tensors, device=dev)
+        c = dataclasses.replace(cfg, dtype=dtype)
+        for attention in ("kernel", "plain"):
+            api = build(c, attention=attention)
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = api.prefill(params, batch, max_len)
+            first = logits.float().cpu().numpy()
+            t_prefill = time.perf_counter() - t1
+            toks = [logits.argmax(-1)]
+            t1 = time.perf_counter()
+            for _ in range(LM_STEPS - 1):
+                logits, cache = api.decode(params, cache, toks[-1])
+                toks.append(logits.argmax(-1))
+            toks = torch.cat(toks, 1).cpu().numpy()
+            t_decode = (time.perf_counter() - t1) / (LM_STEPS - 1)
+            runs[dtype, attention] = (
+                first, toks, dict(ops.VARIANT_LAUNCHES["flash_attention"]),
+                t_prefill, t_decode)
+        del params
+    want = cfg.enc_layers + 2 * cfg.num_layers
+    for dtype, body in (("bfloat16", "wgmma"), ("float32", "fma")):
+        bodies = runs[dtype, "kernel"][2]
+        if bodies[body] != want or sum(bodies.values()) != want \
+                or sum(runs[dtype, "plain"][2].values()):
+            raise AssertionError(f"[encdec] {dtype}: flash_attention "
+                                 f"{bodies}, wanted {want} on {body}")
+    a, b = runs["bfloat16", "kernel"][0], runs["bfloat16", "plain"][0]
+    err = float(np.abs(a - b).max())
+    same32 = np.array_equal(runs["float32", "kernel"][1],
+                            runs["float32", "plain"][1])
+    err32 = float(np.abs(runs["float32", "kernel"][0]
+                         - runs["float32", "plain"][0]).max())
+    k = runs["bfloat16", "kernel"]
+    log(f"[encdec] {ED_ARCH} enc={cfg.enc_layers} dec={cfg.num_layers} "
+        f"d_model={cfg.d_model} vocab={cfg.vocab} frames={ED_FRAMES} "
+        f"prompt={ED_PROMPT_LEN} steps={LM_STEPS} flash={k[2]} "
+        f"prefill_logits bf16 cuda vs torch max_abs_err={err:.3e} (tol "
+        f"{LM_LOGIT_TOL}, max |logit| {float(np.abs(b).max()):.2f}) "
+        f"bf16_tokens_equal={np.array_equal(k[1], runs['bfloat16', 'plain'][1])} "
+        f"fp32 max_abs_err={err32:.3e} fp32_tokens_equal={same32} "
+        f"prefill_wall={k[3] * 1e3:.1f}ms decode_wall={k[4] * 1e3:.2f}ms "
+        f"a step seconds={time.perf_counter() - t0:.1f}")
+    if a.shape != (1, 1, cfg.vocab) or not np.isfinite(a).all() \
+            or err > LM_LOGIT_TOL:
+        raise AssertionError(f"[encdec] prefill logits {a.shape} differ by "
+                             f"{err} (tol {LM_LOGIT_TOL})")
+    if not same32:
+        raise AssertionError("[encdec] fp32 greedy tokens differ between "
+                             "the kernel route and the plain attention")
+    return want
 
 
 # --------------------------------------------------------- request tier --
@@ -2097,9 +2511,26 @@ def main() -> int:
 
     # ------------------------------------- 6b. the CLI's request tier --
     cli_traffic_phase(tmp.name)
+
+    # -------------------------------------------- 7. the other families --
+    t0 = time.perf_counter()
+    recs["flash_attention"]["family_shapes"] = family_flash_phase(torch, ops,
+                                                                  ref)
+    log(f"[flash-families] seconds={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    hy_flash, hy_lsh = hybrid_phase(torch, ops, tmp.name)
+    launches["flash_attention"] += hy_flash
+    launches["lsh_signature"] += hy_lsh
+    log(f"[lm-hybrid] seconds={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    launches["flash_attention"] += families_phase(torch, ops)
+    log(f"[families] seconds={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    launches["flash_attention"] += encdec_phase(torch, ops)
+    log(f"[encdec] seconds={time.perf_counter() - t0:.1f}")
     tmp.cleanup()
 
-    # ------------------------------------------------------ 7. summary --
+    # ------------------------------------------------------ 8. summary --
     csrc = "src/repro_torch/kernels/csrc"
     meta = {
         "dedup_embedding": ("src/repro/kernels/dedup_embedding.py:52",

@@ -35,10 +35,12 @@ __all__ = ["store_config_from_dict", "store_from_arrays", "LMTensors",
            "lm_tensors"]
 
 #: leaves the reference keeps in float32 whatever the model's dtype: norm
-#: scales and biases, qk-norm scales
-F32_LEAVES = ("scale", "bias", "q_norm", "k_norm")
-#: the parameter group whose leaves stack the layers on a leading axis
-LAYERS = "blocks"
+#: scales and biases, qk-norm scales, the MoE router, mamba's dt bias,
+#: A_log, D and gated-norm scale
+F32_LEAVES = ("scale", "bias", "q_norm", "k_norm", "router", "dt_bias",
+              "A_log", "Dp", "ssm_norm")
+#: the parameter groups whose leaves stack the layers on a leading axis
+LAYERS = ("blocks", "dense_blocks", "enc_blocks", "dec_blocks")
 
 
 def store_config_from_dict(d: Mapping[str, Any]) -> StoreConfig:
@@ -103,12 +105,13 @@ def lm_tensors(params: Mapping, dtype=None,
     (:data:`F32_LEAVES`) in float32, as the reference's ``init`` types
     them.
 
-    ``per_layer=True`` registers each layer of a stacked group as its
-    own 2-D matrices (``blocks/0/attn/wq``): a stacked ``[L, d, n]``
-    leaf canonicalised to ``(L, d * n)`` pads L up to a whole row block
-    and inflates the store (``core/blocks.py``), so a full-width store
-    holds per-layer matrices.  The params come back with such a group as
-    a list of per-layer dicts, which the port's transformer takes.
+    ``per_layer=True`` registers each layer of a stacked group
+    (:data:`LAYERS`) as its own matrices (``blocks/0/attn/wq``): a
+    stacked ``[L, d, n]`` leaf canonicalised to ``(L, d * n)`` pads L up
+    to a whole row block and inflates the store (``core/blocks.py``), so
+    a full-width store holds per-layer matrices.  The params come back
+    with such a group as a list of per-layer dicts, which the port's
+    models take.
 
     ``rebuild(tensors, device=None)`` accepts numpy arrays (placed on
     ``device``, the CPU by default) or tensors (left on their device),
@@ -124,7 +127,7 @@ def lm_tensors(params: Mapping, dtype=None,
             dt = torch.float32 if path[-1] in F32_LEAVES \
                 else _torch_dtype(dtype)
         parts = [(path, arr)]
-        if per_layer and path[0] == LAYERS:
+        if per_layer and path[0] in LAYERS:
             parts = [((path[0], str(i)) + path[1:], arr[i])
                      for i in range(arr.shape[0])]
         for p, a in parts:
@@ -149,9 +152,10 @@ def lm_tensors(params: Mapping, dtype=None,
             for part in path[:-1]:
                 node = node.setdefault(part, {})
             node[path[-1]] = t.reshape(shape).to(dtypes[key])
-        grp = out.get(LAYERS)
-        if grp and all(k.isdigit() for k in grp):
-            out[LAYERS] = [grp[str(i)] for i in range(len(grp))]
+        for name in LAYERS:
+            grp = out.get(name)
+            if grp and all(k.isdigit() for k in grp):
+                out[name] = [grp[str(i)] for i in range(len(grp))]
         return out
 
     return LMTensors(tensors, shapes, dtypes, rebuild)

@@ -104,9 +104,14 @@ def build_lm_store(cfg, num_models: int, seed: int = 0,
     (``models.transformer.init_params``), variant v shifted by 1e-5 * v,
     registered into a store of 32x32 blocks, 8 a page, as the reference
     CLI builds its LM store, its index signed in ``index_mode``.
-    Returns (store, names, lm_tensors)."""
+    Returns (store, names, lm_tensors).  Any decoder-only family; an
+    encoder-decoder config raises ``ValueError``."""
     from ..convert import lm_tensors
     from ..models.transformer import init_params
+    if cfg.encdec:
+        raise ValueError(f"{cfg.name}: the LM store holds decoder-only "
+                         f"models; the LM engine cannot prefill an "
+                         f"encoder-decoder from tokens alone")
     lm = lm_tensors(init_params(cfg, seed), dtype=cfg.dtype)
     store = DeviceModelStore(StoreConfig(
         dedup=DedupConfig(block_shape=(32, 32),

@@ -7,7 +7,8 @@ Counterpart of ``repro.models.attention``.  Three entry points:
     in fp32 and cast to k's dtype, p is cast to v's dtype before the
     product with v), so a model run through it computes what the JAX
     model computes;
-  * :func:`prefill_attend` — causal self-attention of a prompt: the
+  * :func:`prefill_attend` — attention of a whole prompt (causal, or
+    not for an encoder and a cross-attention): the
     hand-written ``flash_attention`` kernel (:func:`flash_prefill`) for
     CUDA tensors, ``attend`` for CPU tensors (a CUDA tensor never falls
     back to ``attend``; a caller asks for it by name with
@@ -95,25 +96,28 @@ def attend(q, k, v, *, causal: bool = True, window: int = 0,
     return out.to(q.dtype)
 
 
-def flash_prefill(q, k, v, *, window: int = 0, softcap: float = 0.0):
+def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
+                  softcap: float = 0.0):
     """The kernel route of :func:`prefill_attend`, with the reference's
     roundings: q is scaled in fp32 and cast to k's dtype (``attend``'s
     ``qg``), ``flash_attention`` runs with scale 1 and writes its fp32
     accumulator in q's dtype, with no second cast.  CPU tensors reach the
     kernel's plain version (the CPU tests' way onto this route)."""
     qs = (q.to(F32) * q.shape[-1] ** -0.5).to(k.dtype)
-    return ops.flash_attention(qs, k, v, causal=True, window=window,
+    return ops.flash_attention(qs, k, v, causal=causal, window=window,
                                softcap=softcap, scale=1.0, out_dtype=q.dtype)
 
 
-def prefill_attend(q, k, v, *, window: int = 0, softcap: float = 0.0,
-                   kernel: bool = True):
-    """Causal self-attention of a prompt (q, k, v over the same
-    positions): CUDA tensors take :func:`flash_prefill` (the kernel),
-    CPU tensors :func:`attend`."""
+def prefill_attend(q, k, v, *, causal: bool = True, window: int = 0,
+                   softcap: float = 0.0, kernel: bool = True):
+    """Attention of a whole prompt: causal self-attention (q, k, v over
+    the same positions), or with ``causal=False`` an encoder's
+    self-attention or a cross-attention (Sq != Skv).  CUDA tensors take
+    :func:`flash_prefill` (the kernel), CPU tensors :func:`attend`."""
     if kernel and q.device.type == "cuda":
-        return flash_prefill(q, k, v, window=window, softcap=softcap)
-    return attend(q, k, v, causal=True, window=window, softcap=softcap)
+        return flash_prefill(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+    return attend(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
 def decode_attend(q, k, v, *, kv_len: int, window: int = 0,

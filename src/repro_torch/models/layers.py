@@ -9,11 +9,12 @@ Counterpart of ``repro.models.layers``, with the same conventions:
     reference): bf16 operands are multiplied exactly and summed in fp32.
 
 The reference's sharding ``hint`` is the identity outside a mesh and is
-left out; ``causal_conv1d`` comes with the SSM family.
+left out.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +33,15 @@ def dot(a, b):
     a2 = a.to(dt).reshape(-1, a.shape[-1])
     out = torch.mm(a2, b.to(dt), out_dtype=F32)
     return out.reshape(a.shape[:-1] + (b.shape[-1],))
+
+
+def layer_at(gparams, i: int):
+    """Layer ``i`` of a layer group: an entry of a per-layer list, or a
+    view of every stacked tensor at index ``i``."""
+    if isinstance(gparams, (list, tuple)):
+        return gparams[i]
+    return {k: layer_at(v, i) if isinstance(v, dict) else v[i]
+            for k, v in gparams.items()}
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -106,3 +116,19 @@ def unembed(x, table_or_head, tied: bool, cap: float = 0.0):
     w = table_or_head.T if tied else table_or_head
     logits = dot(x, w.to(x.dtype))
     return softcap(logits, cap)
+
+
+def causal_conv1d(x, w, b, state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv used by mamba: x [B,S,C], w [K,C], b [C].
+
+    With ``state`` ([B, K-1, C], the trailing inputs of the previous step)
+    this is the streaming/decode form; returns (y, new_state).  The zero
+    state and the output are in x's dtype, as in the reference."""
+    k = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], k - 1, x.shape[-1]), dtype=x.dtype,
+                            device=x.device)
+    xin = torch.cat([state, x], dim=1)                   # [B, S+K-1, C]
+    y = sum(xin[:, i: i + x.shape[1]] * w[i] for i in range(k))
+    new_state = xin[:, -(k - 1):] if k > 1 else state
+    return (y + b).to(x.dtype), new_state

@@ -97,3 +97,30 @@ def test_prefill_attend_takes_attend_on_the_cpu():
     want = attention.attend(tq, tk, tv, causal=True)
     assert torch.equal(got, want)
     assert ops.LAUNCHES == n0
+
+
+@pytest.mark.parametrize("Sq,Skv", [(40, 40), (8, 75)])
+def test_non_causal_kernel_route_matches_the_reference(Sq, Skv):
+    """Whisper's encoder self-attention (Sq = Skv) and cross-attention
+    (Sq != Skv, ragged Skv) on the kernel route, ``causal=False``: the
+    reference's flash function of ``qg`` within the fp32 summation order,
+    its ``attend`` within p's bf16 rounding; on the CPU ``prefill_attend``
+    is ``attend(causal=False)`` itself."""
+    rng = np.random.default_rng(Sq + Skv)
+    q = rng.standard_normal((1, Sq, 4, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((1, Skv, 4, 64)).astype(ml_dtypes.bfloat16)
+            for _ in range(2))
+    tq = torch.from_numpy(q)
+    tk, tv = (torch.from_numpy(a.astype(np.float32)).bfloat16()
+              for a in (k, v))
+    got = attention.flash_prefill(tq, tk, tv, causal=False).numpy()
+    qg = (jnp.asarray(q) * 64 ** -0.5).astype(jnp.bfloat16)
+    want = np.asarray(jref.flash_attention(
+        qg.astype(jnp.float32), jnp.asarray(k).astype(jnp.float32),
+        jnp.asarray(v).astype(jnp.float32), causal=False, scale=1.0))
+    assert np.abs(got - want).max() <= SUM_ORDER_TOL
+    model = np.asarray(jattend(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=False))
+    assert np.abs(got - model).max() <= P_ROUNDING_TOL
+    plain = attention.prefill_attend(tq, tk, tv, causal=False)
+    assert torch.equal(plain, attention.attend(tq, tk, tv, causal=False))

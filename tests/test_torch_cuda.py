@@ -20,14 +20,16 @@ on both bodies (tf32x3 and fma), and the same bits from call to call;
 stores built on the card: block maps and pages equal to the host build.
 Sharded slab: the kernels at a block map into the staging tail as above;
 cuda-mode sharded logits 1e-5 of the host-mode sharded run, its routes
-and borrow counters exactly; LM tokens equal to torch mode.
+and borrow counters exactly; LM tokens equal to torch mode.  The other
+families (fp32, reduced): prefill logits through the kernel route within
+1e-4 of the plain attention, greedy tokens equal.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import get_config, list_archs, reduced
 from repro_torch.data.pipeline import SyntheticTextTask
 from repro_torch.db import DedupDB
 from repro_torch.kernels import ops, ref
@@ -301,6 +303,50 @@ def test_flash_attention_wgmma_body(cuda_device, B, Sq, Skv, H, K, hd, causal,
             rtol=2e-2, atol=2e-2)
 
 
+#: the other families' shapes on both bodies: odd GQA groups (hymba's
+#: 25 / 5, arctic's 56 / 8), phi-3-vision's hd 96 and kimi-k2's hd 112 (on
+#: the wgmma body, padded to 128), a 1024-key window over 2048 keys with
+#: tiles skipped, and whisper's non-causal attention over a ragged 1500
+#: keys: its encoder (Sq = Skv) and its cross-attention (Sq = 8)
+FAMILY_FLASH_CASES = [
+    (1, 300, 300, 10, 2, 64, True, 128, 0.0),     # G 5, window
+    (1, 2048, 2048, 5, 1, 64, True, 1024, 0.0),   # hymba's local layer
+    (1, 200, 200, 14, 2, 128, True, 0, 0.0),      # G 7
+    (1, 256, 256, 4, 4, 96, True, 0, 0.0),        # hd 96
+    (1, 256, 256, 8, 1, 112, True, 0, 0.0),       # hd 112, G 8
+    (1, 1500, 1500, 2, 2, 64, False, 0, 0.0),     # whisper's encoder
+    (1, 8, 1500, 12, 12, 64, False, 0, 0.0),      # whisper's cross
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,cap",
+                         FAMILY_FLASH_CASES)
+def test_flash_attention_at_the_families_shapes(cuda_device, dtype, B, Sq,
+                                                Skv, H, K, hd, causal,
+                                                window, cap):
+    """bf16 on the wgmma body (every hd here is a multiple of 16 in
+    [64, 256]) and fp32 on the fma body, each against the plain version
+    under its tolerance."""
+    rng = np.random.default_rng(Sq + H)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, dtype)
+        for shape in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
+    body = ops.flash_variant(dtype, hd)
+    assert body == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    v0 = dict(ops.VARIANT_LAUNCHES["flash_attention"])
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cap)
+    torch.cuda.synchronize()
+    assert ops.VARIANT_LAUNCHES["flash_attention"][body] == v0[body] + 1
+    want = ref.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=cap)
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (2e-2, 2e-2)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
 #: fp32 O from bf16 inputs: (body, B, Sq, Skv, H, K, hd, causal, window, cap)
 FP32_OUT_CASES = [
     ("wgmma", 1, 130, 130, 4, 2, 64, True, 0, 0.0),
@@ -402,6 +448,49 @@ def test_bf16_dot_accumulates_in_fp32(cuda_device):
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, a.float() @ b.float(), rtol=1e-5,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_family_prefill_cuda_matches_torch_mode(cuda_device, arch):
+    """Each reduced family in fp32 on the card: prefill through the
+    kernel route (flash_attention's fma body, non-causal for whisper's
+    encoder and cross-attention) against the plain attention, logits
+    within 1e-4, then three decode steps with equal greedy tokens."""
+    from repro_torch.models import encdec, transformer
+    cfg = reduced(get_config(arch))
+    tree = encdec.init_params(cfg, 0, max_dec=64) if cfg.encdec \
+        else transformer.init_params(cfg, 0)
+    lm = convert.lm_tensors(tree, dtype=cfg.dtype)
+    params = lm.rebuild(lm.tensors, device=cuda_device)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab, size=(2, 24)).astype(np.int32)).to(cuda_device)}
+    if cfg.encdec:
+        batch["frames"] = torch.randn(2, 40, cfg.d_model, device=cuda_device)
+    if cfg.vlm_stub:
+        batch["image_embeds"] = torch.randn(2, cfg.num_patches, cfg.d_model,
+                                            device=cuda_device)
+    max_len = 28 + (cfg.num_patches if cfg.vlm_stub else 0)
+    out = {}
+    for attention in ("kernel", "plain"):
+        api = build(cfg, attention=attention)
+        n0 = ops.LAUNCHES["flash_attention"]
+        logits, cache = api.prefill(params, batch, max_len)
+        launches = ops.LAUNCHES["flash_attention"] - n0
+        first = logits.cpu().numpy()
+        toks = [logits.argmax(-1)]
+        for _ in range(3):
+            logits, cache = api.decode(params, cache, toks[-1])
+            toks.append(logits.argmax(-1))
+        out[attention] = (launches, first, torch.cat(toks, 1).cpu().numpy())
+    # one launch an attention of the prompt: each layer's self-attention,
+    # and whisper's encoder layers and cross-attentions
+    want = 0 if cfg.family == "ssm" else cfg.num_layers \
+        + (cfg.enc_layers + cfg.num_layers if cfg.encdec else 0)
+    assert out["kernel"][0] == want and out["plain"][0] == 0
+    np.testing.assert_allclose(out["kernel"][1], out["plain"][1], rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(out["kernel"][2], out["plain"][2])
 
 
 def _lm_setup():

@@ -1,9 +1,9 @@
 """The port stands alone: it imports neither jax nor the JAX package, and
 its copies of the JAX package's framework-free modules cannot drift.
 
-The copies (obs, storage, core, configs, the scheduler, prefetcher,
-traffic generator, paged KV cache, request frontend and shard router)
-must equal their originals once ``repro.``/``repro/`` is renamed to
+The copies (obs, storage, core with compress and finetune, configs, the
+scheduler, prefetcher, traffic generator, paged KV cache, request
+frontend and shard router) must equal their originals once ``repro.``/``repro/`` is renamed to
 ``repro_torch.``/``repro_torch/`` in import lines and ``-m`` strings;
 ``data/pipeline.py`` is the one copy allowed to be trimmed (it drops the
 jax-only ``make_batch_from_specs``).
@@ -28,7 +28,7 @@ COPIES = [
     "storage/sqlite.py", "storage/objsim.py",
     "core/__init__.py", "core/blocks.py", "core/lsh.py", "core/magnitude.py",
     "core/dedup.py", "core/pagepack.py", "core/bufferpool.py",
-    "core/store.py",
+    "core/store.py", "core/compress.py", "core/finetune.py",
     "serving/scheduler.py", "serving/prefetch.py", "serving/traffic.py",
     "serving/kvcache.py", "serving/frontend.py", "serving/router.py",
     "configs/__init__.py", "configs/base.py", "configs/arctic_480b.py",

@@ -1,8 +1,9 @@
 """Slice 2 as a whole: the port's LM engine serves a store the JAX
 package wrote, token for token.
 
-The setup of ``tests/test_lm_serving.py``: the reduced deepseek-7b is
-initialised by JAX, flattened with the reference CLI's naming and
+The setup of ``tests/test_lm_serving.py``: the reduced deepseek-7b (and,
+for the other families, the reduced hymba-1.5b, kimi-k2 and mamba2-1.3b)
+is initialised by JAX, flattened with the reference CLI's naming and
 registered as two variants (the second shifted by 1e-5) into a JAX
 ``ModelStore`` of 32x32 blocks, committed to SQLite.  The JAX
 ``LMServingEngine`` (device backend, host kernel mode) and the port's
@@ -35,13 +36,15 @@ torch.set_num_threads(2)
 MODELS = ("lm-v0", "lm-v1")
 ORDER = ["lm-v0", "lm-v1", "lm-v1", "lm-v0"]
 STEPS = 4
+#: the other families' reduced configs served from a JAX-written store
+FAMILIES = ["hymba-1.5b", "kimi-k2-1t-a32b", "mamba2-1.3b"]
 
 
-@pytest.fixture(scope="module")
-def shared(tmp_path_factory):
-    """The reference's LM store in SQLite, the JAX side of serving it and
-    the port's (apis + rebuild templates of the same exported weights)."""
-    cfg = jreduced(jget_config("deepseek-7b"))
+def _build_shared(arch, tmp_dir):
+    """The reference's LM store of one reduced arch in SQLite, the JAX
+    side of serving it and the port's (apis + rebuild templates of the
+    same exported weights)."""
+    cfg = jreduced(jget_config(arch))
     japi = jbuild(cfg)
     params = japi.init(jax.random.PRNGKey(0), 64)
     flat, treedef = jax.tree_util.tree_flatten_with_path(params)
@@ -70,16 +73,26 @@ def shared(tmp_path_factory):
         blocks_per_page=8))
     store.register("lm-v0", tensors)
     store.register("lm-v1", {k: v + 1e-5 for k, v in tensors.items()})
-    url = f"sqlite:///{tmp_path_factory.mktemp('lm') / 'lm.db'}"
+    url = f"sqlite:///{tmp_dir / 'lm.db'}"
     store.save(url)
 
     lm = convert.lm_tensors(jax.tree_util.tree_map(np.asarray, params))
-    tapi = build(reduced(get_config("deepseek-7b")))
+    tapi = build(reduced(get_config(arch)))
     prompts = [np.random.default_rng(b).integers(1, 256, size=(2, 12))
                .astype(np.int32) for b in range(len(ORDER))]
     return dict(url=url, japi=japi, jrebuild=jrebuild, tapi=tapi, lm=lm,
                 prompts=prompts, pages=store.num_pages(),
                 model_pages=max(len(store.model_pages(m)) for m in MODELS))
+
+
+@pytest.fixture(scope="module")
+def shared(tmp_path_factory):
+    return _build_shared("deepseek-7b", tmp_path_factory.mktemp("lm"))
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def family(request, tmp_path_factory):
+    return _build_shared(request.param, tmp_path_factory.mktemp("family"))
 
 
 def _jax_engine(shared, cap):
@@ -124,6 +137,25 @@ def test_port_serves_the_reference_lm_store(shared, mode):
     got = _serve(engine, shared)
     assert engine.server.device_pool.mode() == mode
     assert engine.stats.device_batches == 3      # v0, v1, v0: 3 switches
+    assert engine.stats.dense_fallbacks == 0
+    for a, b in zip(want, got):
+        assert a.shape == (2, STEPS)
+        np.testing.assert_array_equal(a, b)
+    assert _decisions(engine) == _decisions(want_engine)
+
+
+@pytest.mark.parametrize("mode", ["torch", "host"])
+def test_port_serves_the_reference_family_store(family, mode):
+    """The reduced hybrid (hymba), MoE (kimi-k2) and SSM (mamba2) models,
+    JAX-written and served by both engines from one database: the same
+    greedy tokens and the same pool decisions, every switch on the
+    slab."""
+    cap = family["model_pages"]
+    want_engine = _jax_engine(family, cap)
+    want = _serve(want_engine, family)
+    engine = _port_engine(family, cap, mode)
+    got = _serve(engine, family)
+    assert engine.stats.device_batches == 3
     assert engine.stats.dense_fallbacks == 0
     for a, b in zip(want, got):
         assert a.shape == (2, STEPS)

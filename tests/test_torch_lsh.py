@@ -208,6 +208,31 @@ def test_lm_store_matches_the_reference(tmp_path, mode):
     _assert_same_store(store, jstore, tmp_path, mode)
 
 
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "kimi-k2-1t-a32b",
+                                  "mamba2-1.3b", "phi-3-vision-4.2b"])
+def test_family_lm_store_matches_the_reference(tmp_path, arch):
+    """``build_lm_store`` takes every decoder-only family: the same store
+    as the reference's configuration fed the same weights; an
+    encoder-decoder config is refused."""
+    store, names, lm = build_lm_store(reduced(get_config(arch)), 2, seed=0,
+                                      index_mode="torch")
+    assert any("/mamba/" in k or "/moe/" in k for k in lm.tensors) \
+        or arch.startswith("phi")
+    jstore = JModelStore(JStoreConfig(
+        dedup=JDedupConfig(block_shape=(32, 32),
+                           lsh=JLSHConfig(num_bands=8, rows_per_band=2,
+                                          r=4.0, collision_threshold=6),
+                           validate=False),
+        blocks_per_page=8))
+    for v, name in enumerate(names):
+        delta = 0.0 if v == 0 else 1e-5 * v
+        jstore.register(name, {k: t + delta for k, t in lm.tensors.items()})
+    _assert_same_store(store, jstore, tmp_path, arch)
+    with pytest.raises(ValueError, match="decoder-only"):
+        build_lm_store(reduced(get_config("whisper-small")), 1,
+                       index_mode="torch")
+
+
 def _updated_embedding(task, variant):
     """A fine-tune of one variant: a third of its rows moved."""
     x = task.variant_embedding(variant).copy()

@@ -10,7 +10,8 @@ qwen3-14b (qk-norm) and qwen2-72b (qkv bias).  Tolerance 1e-5 in fp32
 (summation order differs; the observed gap is about 2e-7).  On the CPU
 the port's prefill attention is the plain ``attend``; the
 ``flash_attention`` kernel is held against it on the card
-(``tests/test_torch_cuda.py``).
+(``tests/test_torch_cuda.py``).  The other families are
+``tests/test_torch_families.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -236,11 +237,3 @@ def test_served_dtypes_follow_the_reference_init():
            str(leaf.dtype) for path, leaf in
            jax.tree_util.tree_flatten_with_path(jparams)[0]}
     assert set(jdt) == set(lm.dtypes)
-
-
-@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "mamba2-1.3b",
-                                  "hymba-1.5b", "whisper-small",
-                                  "phi-3-vision-4.2b"])
-def test_later_families_say_so(arch):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build(reduced(get_config(arch)))
