@@ -131,9 +131,29 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      whisper-small at full size in bf16 (12 + 12 layers, 1500 frames, an
      8-token prompt, 16 steps) through ``registry.build``, prefill logits
      within ``LM_LOGIT_TOL`` of the plain attention, fp32 tokens equal;
+  6a. finetune — paper Sec. 4.3 on the LM store: lm-v1's dedup
+     gradient masks (1 on blocks private to v1) mapped through
+     ``lm_tensors``' ``rebuild`` onto its fp32 params taken from the
+     store, 3 Adafactor steps (B 2 x S 256) with the masks as the train
+     step's ``grad_transform``, every masked element bit-equal to
+     ``store.materialize``; then ``store.update("lm-v1", tuned,
+     approach=2)`` (v1's blocks signed again by ``lsh_signature``) and
+     the pages rewritten at most the pages that held a private block;
+  7b. training — deepseek-7b at full width (vocabulary 102,400), depth
+     cut 30 -> 4, bf16, remat, AdamW, B 4 x S 512, through the port's
+     ``launch.train.train``: ``[train]`` (20 ``--overfit`` steps, every
+     loss finite, the last 5 at least 0.5 below the first 5; step ms
+     median and spread, tokens/s, peak memory), ``[train-split]`` (fwd +
+     bwd against ``opt.update``), ``[train-profile]`` (device busy share
+     and top device ops of 3 steps), ``[train-resume]`` (6 steps, and 3
+     checkpointed then resumed with ``--resume auto``: losses within
+     1e-3) and ``[train-compress]`` (``--compress-grads``: the last loss
+     within 0.25 of the uncompressed run's); ``ops.LAUNCHES`` before and
+     after: training launches no kernel (the loss runs the plain
+     attention, as the reference's does);
   8. a ``{"kernels": [...]}`` line with every ported kernel's launches
-     on its path (phases 2b, 4, 5, 5b, 5c, 6 and 7), its times and its
-     bound;
+     on its path (phases 2b, 4, 5, 5b, 5c, 6, 6a and 7), its times and
+     its bound;
   9. last line: ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure (the script catches nothing), so any
@@ -239,6 +259,17 @@ RESTART_AFTER = 5                          # dispatches before the "crash"
 # steps a request; every model switch costs ~10 s on the host
 LM_TRAFFIC_REQUESTS, LM_TRAFFIC_MAX_BATCH = 8, 4
 LM_TRAFFIC_RATE, LM_TRAFFIC_SLO_MS = 20.0, 60000.0
+# training: deepseek-7b at full width (vocabulary 102,400 not cut: training
+# builds no store), depth cut 30 -> 4 (at full depth its bf16 params and
+# grads and fp32 AdamW moments take 82.9 GB, more than the card's 80),
+# bf16, AdamW, B 4 x S 512; 20 --overfit steps, a 6-step run broken at 3
+# and resumed, the same 6 steps with --compress-grads
+TRAIN_DEPTH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 4, 512, 3e-4
+TRAIN_STEPS, RESUME_STEPS, RESUME_AT, TRAIN_SPLIT_STEPS = 20, 6, 3, 3
+# the dedup-masked fine-tune (paper Sec. 4.3) of lm-v1 on the LM store,
+# fp32, Adafactor (weight decay 0: a zero gradient makes a zero update)
+FT_STEPS, FT_BATCH, FT_SEQ = 3, 2, 256
+DEVICE = "cuda"
 # the CLI's traffic run on the card, killed and resumed
 CLI_TRAFFIC = "rate=400,requests=40,slo_ms=200,max_batch=4"
 # the sharded slab on the word2vec store: the 40 batches in order, overlap
@@ -707,7 +738,7 @@ def lm_store(cfg, url):
     twice, its index signed on the card and on the host: the two must be
     equal, and the card's is committed.  Returns the carried tensors
     served in bf16 and in fp32, a record of the build and the card
-    build's LSH."""
+    build's store (kept in memory for the fine-tune phase)."""
     import math
     import numpy as np
     from repro_torch.convert import lm_tensors
@@ -788,7 +819,7 @@ def lm_store(cfg, url):
     log(f"[lm-index] cuda == host: block maps, distinct="
         f"{store.dedup.num_distinct}, pages={pages}; lsh_launches="
         f"{lsh_launches} (all tf32x3)")
-    return lm, lm32, rec, store.dedup.index.lsh
+    return lm, lm32, rec, store
 
 
 def lm_traffic(cfg):
@@ -1301,7 +1332,8 @@ def check_modes(torch, cfg, url, plain_apis, lm, lm32, traffic, capacity,
 
 def lm_phase(torch, ops, ref, tmpdir):
     """The LM path: returns (kernel records, launches on the path) of
-    flash_attention and lsh_signature."""
+    flash_attention and lsh_signature, the request tier's launches, and
+    the store with the carried tensors (the fine-tune phase's input)."""
     import numpy as np
     from repro_torch.core.blocks import block_tensor
     from repro_torch.core.device_index import CHUNK_BLOCKS
@@ -1309,7 +1341,8 @@ def lm_phase(torch, ops, ref, tmpdir):
     cfg = lm_config()
     flash = flash_phase(torch, ops, ref, cfg)
     url = f"sqlite:///{Path(tmpdir) / 'lm.db'}"
-    lm, lm32, store_rec, lsh = lm_store(cfg, url)
+    lm, lm32, store_rec, store = lm_store(cfg, url)
+    lsh = store.dedup.index.lsh
     blocks = np.concatenate([block_tensor(np.asarray(t), (64, 64))[0]
                              .reshape(-1, 4096) for t in lm.tensors.values()])
     lsh_rec = lsh_phase(torch, ops, ref, blocks[:CHUNK_BLOCKS], lsh)
@@ -1376,7 +1409,8 @@ def lm_phase(torch, ops, ref, tmpdir):
     log(f"[lm-traffic] seconds={time.perf_counter() - t0:.1f}")
     return ({"flash_attention": flash, "lsh_signature": lsh_rec},
             {"flash_attention": launches["flash_attention"],
-             "lsh_signature": store_rec["lsh_launches"]}, traffic_launches)
+             "lsh_signature": store_rec["lsh_launches"]}, traffic_launches,
+            (store, lm32))
 
 
 # ------------------------------------------------------ other families --
@@ -2330,6 +2364,275 @@ def shards_phase(torch, ops, ref, url, heads, batches, capacity, fstore,
     return launches
 
 
+# -------------------------------------------------------------- training --
+def train_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), num_layers=TRAIN_DEPTH)
+
+
+def train_args(*extra):
+    """The trainer's flags for the full-width runs (parsed by the port's
+    own ``launch.train``)."""
+    from repro_torch.launch.train import parse_args
+    return parse_args(["--arch", LM_ARCH, "--batch", str(TRAIN_BATCH),
+                       "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+                       "--seed", str(SEED), "--log-every", "5",
+                       "--device", DEVICE, *map(str, extra)])
+
+
+def run_train(torch, ops, cfg, tag, *extra):
+    """One ``launch.train.train`` run on the card, in a window of its own:
+    no kernel may launch (the loss runs the plain attention).  Returns
+    its result and prints losses, step times, tokens/s and peak memory."""
+    import numpy as np
+    from repro_torch.launch.train import train
+    before = dict(ops.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(cfg, train_args(*extra))
+    wall = time.perf_counter() - t0
+    if ops.LAUNCHES != before:
+        raise AssertionError(f"{tag}: training launched kernels: "
+                             f"{before} -> {ops.LAUNCHES}")
+    losses = out["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: losses {losses}")
+    steady = out["step_seconds"][1:] or out["step_seconds"]
+    ms = np.asarray(steady) * 1e3
+    out["step_ms"] = float(np.median(ms))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag} steps={len(losses)} first_loss={losses[0]:.4f} "
+        f"last_loss={losses[-1]:.4f} first_step_ms="
+        f"{out['step_seconds'][0] * 1e3:.1f} step_ms_median="
+        f"{out['step_ms']:.1f} min={ms.min():.1f} max={ms.max():.1f} "
+        f"tokens_per_s={TRAIN_BATCH * TRAIN_SEQ / out['step_ms'] * 1e3:.0f} "
+        f"peak_mem={out['peak_gb']:.2f}GB wall={wall:.1f}s")
+    log(f"{tag} losses={[round(x, 5) for x in losses]}")
+    return out
+
+
+def train_split(torch, cfg, params, opt_state, tag="[train-split]"):
+    """Where a step's time goes: forward + backward against ``opt.update``
+    (host clock around each, synchronised), over TRAIN_SPLIT_STEPS steps
+    on the overfit batch; then the same steps under torch.profiler:
+    device-busy share of the window and the top device ops."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import build
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    api = build(cfg)
+    opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR,
+                         schedule=cosine_schedule(TRAIN_LR, warmup=5,
+                                                  total=TRAIN_STEPS))
+    dev = torch.device(DEVICE)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(token_batches(
+        cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)).items()}
+    fb, up = [], []
+    for _ in range(TRAIN_SPLIT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grads = value_and_grad(lambda p: api.loss(p, batch), params)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt_state, _ = opt.update(grads, opt_state, params)
+        torch.cuda.synchronize()
+        up.append(time.perf_counter() - t1)
+        fb.append(t1 - t0)
+        del grads
+    log(f"{tag} fwd+bwd_ms={[round(x * 1e3, 1) for x in fb]} "
+        f"opt_update_ms={[round(x * 1e3, 1) for x in up]} "
+        f"update_share={np.sum(up) / (np.sum(up) + np.sum(fb)):.3f}")
+    step = make_train_step(api, opt)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_SPLIT_STEPS):
+            params, opt_state, m = step(params, opt_state, batch)
+            float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+    busy_us = sum(r[1] for r in rows)
+    log(f"[train-profile] wall={wall * 1e3:.1f}ms device_busy="
+        f"{busy_us / 1e3:.1f}ms busy_share={busy_us / 1e6 / wall:.4f} "
+        f"({TRAIN_SPLIT_STEPS} steps)")
+    for key, us, n in sorted(rows, key=lambda r: -r[1])[:12]:
+        log(f"[train-profile] {us / 1e3:9.3f}ms {n:6d}x  {key[:90]}")
+    return float(np.median(fb)) * 1e3, float(np.median(up)) * 1e3, \
+        busy_us / 1e6 / wall
+
+
+def train_phase(torch, ops, tmpdir):
+    """deepseek-7b at full width (vocabulary 102,400), depth cut 30 ->
+    TRAIN_DEPTH, bf16 params, AdamW, through the port's
+    ``launch.train.train``: [train] (--overfit, the reference's
+    criterion), the step split and profile, [train-resume] (checkpointed
+    at RESUME_AT and resumed with --resume auto: losses within 1e-3 of
+    the unbroken run's) and [train-compress] (--compress-grads: the last
+    loss within 0.25 of the uncompressed run's)."""
+    import shutil
+    import numpy as np
+    cfg = train_config()
+    n = cfg.param_count() + (2 * TRAIN_DEPTH + 1) * cfg.d_model
+    log(f"[train] {LM_ARCH} d_model={cfg.d_model} heads={cfg.num_heads}x"
+        f"{cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab} depth={TRAIN_DEPTH} "
+        f"params={n} dtype={cfg.dtype} remat={cfg.remat} "
+        f"optimizer={cfg.optimizer} lr={TRAIN_LR} batch={TRAIN_BATCH}x"
+        f"{TRAIN_SEQ}")
+    t0 = time.perf_counter()
+    out = run_train(torch, ops, cfg, "[train]", "--steps", TRAIN_STEPS,
+                    "--overfit")
+    losses = out["losses"]
+    drop = float(np.mean(losses[:5]) - np.mean(losses[-5:]))
+    if drop < 0.5:
+        raise AssertionError(f"[train] the mean of the last 5 losses is "
+                             f"{drop:.4f} below the first 5's, wanted >= 0.5")
+    fb_ms, up_ms, busy = train_split(torch, cfg, out["params"],
+                                     out["opt_state"])
+    rec = dict(step_ms=out["step_ms"], peak_gb=out["peak_gb"], drop=drop,
+               fwd_bwd_ms=fb_ms, update_ms=up_ms, busy_share=busy,
+               params=n)
+    del out
+    log(f"[train] overfit drop={drop:.4f} (>= 0.5) "
+        f"seconds={time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    ck = str(Path(tmpdir) / "train_ckpt")
+    full = run_train(torch, ops, cfg, "[train-resume] unbroken",
+                     "--steps", RESUME_STEPS)["losses"]
+    run_train(torch, ops, cfg, "[train-resume] first", "--steps", RESUME_AT,
+              "--ckpt", ck)
+    resumed = run_train(torch, ops, cfg, "[train-resume] resumed",
+                        "--steps", RESUME_STEPS, "--ckpt", ck,
+                        "--resume", "auto")["losses"]
+    shutil.rmtree(ck)
+    err = float(np.max(np.abs(np.asarray(resumed)
+                              - np.asarray(full[RESUME_AT:]))))
+    if len(resumed) != RESUME_STEPS - RESUME_AT or err > 1e-3:
+        raise AssertionError(f"[train-resume] resumed losses {resumed} vs "
+                             f"unbroken {full[RESUME_AT:]}")
+    log(f"[train-resume] steps {RESUME_AT}-{RESUME_STEPS - 1}: "
+        f"max_abs_err={err:.3e} (tol 1e-3) "
+        f"seconds={time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    comp = run_train(torch, ops, cfg, "[train-compress]", "--steps",
+                     RESUME_STEPS, "--compress-grads")["losses"]
+    gap = abs(comp[-1] - full[-1])
+    if gap >= 0.25:
+        raise AssertionError(f"[train-compress] last loss {comp[-1]} vs "
+                             f"uncompressed {full[-1]}")
+    log(f"[train-compress] last_loss={comp[-1]:.4f} uncompressed="
+        f"{full[-1]:.4f} gap={gap:.4f} (< 0.25) "
+        f"seconds={time.perf_counter() - t0:.1f}")
+    return rec
+
+
+def _lm_key(params, key):
+    """The tensor at a ``lm_tensors`` key in params that ``rebuild``
+    returned (per-layer groups as lists)."""
+    node = params
+    for part in key.split("/"):
+        node = node[int(part)] if isinstance(node, list) else node[part]
+    return node
+
+
+def finetune_phase(torch, ops, store, lm32):
+    """Paper Sec. 4.3 on the LM store: lm-v1's gradient masks (1 on
+    blocks private to v1) mapped onto its fp32 params taken from the
+    store, FT_STEPS Adafactor steps with the masks as ``grad_transform``,
+    every masked element bit-equal to ``store.materialize``; then
+    ``store.update("lm-v1", tuned, approach=2)`` and the pages rewritten
+    (pages of the new packing whose blocks no old page holds) against
+    the pages that hold a private block.  Returns the update's
+    lsh_signature launches."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.convert import train_params
+    from repro_torch.core.finetune import gradient_masks, private_block_mask
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    model = "lm-v1"
+    cfg = dataclasses.replace(lm_config(), dtype="float32")
+    dev = torch.device(DEVICE)
+    masks = gradient_masks(store.dedup, model)
+    dense = {k: store.materialize(model, k) for k in lm32.tensors}
+    params = train_params(tree_map(lambda t: t.numpy(), lm32.rebuild(dense)),
+                          cfg, dev)
+    mask_tree = lm32.rebuild(masks, device=dev)
+    n_masked = sum(int((m == 0).sum()) for m in masks.values())
+    step = make_train_step(
+        build(cfg), make_optimizer("adafactor", lr=TRAIN_LR),
+        grad_transform=lambda g: tree_map(torch.mul, g, mask_tree))
+    opt_state = make_optimizer("adafactor").init(params)
+    data = token_batches(cfg.vocab, FT_BATCH, FT_SEQ, seed=SEED + 9)
+    ops.reset_launches()
+    losses = []
+    for _ in range(FT_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(data).items()}
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+    if any(ops.LAUNCHES.values()) or not all(np.isfinite(losses)):
+        raise AssertionError(f"[finetune] launches {ops.LAUNCHES}, losses "
+                             f"{losses}")
+    tuned, changed = {}, 0
+    for key, want in dense.items():
+        got = _lm_key(params, key).detach().cpu().numpy().reshape(want.shape)
+        frozen = masks[key] == 0
+        if not np.array_equal(got[frozen], want[frozen]):
+            raise AssertionError(f"[finetune] {key}: a masked element moved")
+        changed += int((got != want).sum())
+        tuned[key] = got
+    del params, opt_state, mask_tree
+    t_train = time.perf_counter() - t0
+    if changed == 0:
+        raise AssertionError("[finetune] no private element moved")
+
+    # the pages the update rewrites, against the pages of private blocks
+    old_pages = store.packing.pages
+    private = set()
+    for key, e in store.dedup.models[model].tensors.items():
+        pm = private_block_mask(store.dedup, model, key)
+        private.update(int(d) for d, p in zip(e.block_map, pm) if p == 1.0)
+    private_pages = sum(1 for page in old_pages
+                        if any(int(d) in private for d in page))
+    old = {tuple(page) for page in old_pages}
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    n_distinct = len(store.dedup.distinct)
+    res = store.update(model, tuned, approach=2)
+    rewritten = sum(1 for page in store.packing.pages
+                    if tuple(page) not in old)
+    t_update = time.perf_counter() - t1
+    lsh_launches = ops.LAUNCHES["lsh_signature"]
+    all_tf32x3(ops, lsh_launches, "[finetune] update")
+    if rewritten > private_pages:
+        raise AssertionError(f"[finetune] {rewritten} pages rewritten, "
+                             f"more than the {private_pages} private pages")
+    log(f"[finetune] {model} fp32 depth={cfg.num_layers} vocab={cfg.vocab} "
+        f"adafactor steps={FT_STEPS} batch={FT_BATCH}x{FT_SEQ} "
+        f"losses={[round(x, 4) for x in losses]} masked_elements="
+        f"{n_masked} bit_equal=yes elements_changed={changed} "
+        f"train={t_train:.1f}s")
+    log(f"[finetune] update approach=2: blocks={res.total_blocks} "
+        f"deduped={res.deduped_blocks} new_distinct="
+        f"{len(store.dedup.distinct) - n_distinct} pages_rewritten="
+        f"{rewritten} private_pages={private_pages} pages="
+        f"{store.packing.num_pages} lsh_launches={lsh_launches} "
+        f"update={t_update:.1f}s seconds={time.perf_counter() - t0:.1f}")
+    return lsh_launches
+
+
 def main() -> int:
     # ------------------------------------------------------ 1. device --
     import torch
@@ -2499,8 +2802,8 @@ def main() -> int:
 
     # ----------------------------------------------------------- 6. LM --
     t0 = time.perf_counter()
-    lm_recs, lm_launches, lm_traffic_launches = lm_phase(torch, ops, ref,
-                                                         tmp.name)
+    lm_recs, lm_launches, lm_traffic_launches, lm_store_out = lm_phase(
+        torch, ops, ref, tmp.name)
     recs.update(lm_recs)
     launches.update(lm_launches)
     launches["flash_attention"] += lm_traffic_launches
@@ -2508,6 +2811,10 @@ def main() -> int:
     # store's two variants
     launches["lsh_signature"] += index_launches
     log(f"[lm] seconds={time.perf_counter() - t0:.1f}")
+
+    # ------------------------- 6a. the dedup-masked fine-tune (Sec. 4.3) --
+    launches["lsh_signature"] += finetune_phase(torch, ops, *lm_store_out)
+    del lm_store_out
 
     # ------------------------------------- 6b. the CLI's request tier --
     cli_traffic_phase(tmp.name)
@@ -2528,6 +2835,15 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["flash_attention"] += encdec_phase(torch, ops)
     log(f"[encdec] seconds={time.perf_counter() - t0:.1f}")
+
+    # ---------------------------------------------------- 7b. training --
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    log(f"[train] LAUNCHES before={ops.LAUNCHES}")
+    train_phase(torch, ops, tmp.name)
+    log(f"[train] LAUNCHES after={ops.LAUNCHES}")
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError("training launched a kernel")
     tmp.cleanup()
 
     # ------------------------------------------------------ 8. summary --

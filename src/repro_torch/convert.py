@@ -17,7 +17,10 @@ Two carriers:
     reference's pytree exported as nested numpy dicts, or the port's own
     ``init_params``) into the 2-D tensors the reference CLI registers,
     and returns the ``rebuild`` that turns served tensors back into the
-    port's params.
+    port's params;
+  * parameters to train — :func:`train_params` turns such a tree (or a
+    loaded checkpoint) into leaf tensors in the reference's dtypes that
+    require grad.
 
 Nothing here imports the JAX package: the caller hands over numpy
 arrays and plain dictionaries.
@@ -32,7 +35,7 @@ import torch
 from .core import DedupConfig, LSHConfig, ModelStore, StoreConfig
 
 __all__ = ["store_config_from_dict", "store_from_arrays", "LMTensors",
-           "lm_tensors"]
+           "lm_tensors", "train_params", "to_tensor"]
 
 #: leaves the reference keeps in float32 whatever the model's dtype: norm
 #: scales and biases, qk-norm scales, the MoE router, mamba's dt bias,
@@ -159,3 +162,43 @@ def lm_tensors(params: Mapping, dtype=None,
         return out
 
     return LMTensors(tensors, shapes, dtypes, rebuild)
+
+
+def _bf16_bits(arr: np.ndarray) -> bool:
+    """True for an array that holds bf16 bit patterns: raw 2-byte void
+    (``|V2``, what ``np.savez`` writes for a JAX bf16 array), a
+    ``uint16`` view of them, or ``ml_dtypes``' bfloat16."""
+    return (arr.dtype.kind == "V" and arr.dtype.itemsize == 2) \
+        or arr.dtype == np.uint16 or arr.dtype.name == "bfloat16"
+
+
+def to_tensor(arr, dtype=None, device=None) -> torch.Tensor:
+    """A numpy array as a tensor (bf16 bit patterns as bfloat16), cast to
+    ``dtype`` where given, on ``device``; one copy at most, and never a
+    view of ``arr``."""
+    arr = np.asarray(arr)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    if _bf16_bits(arr):
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                             ).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    out = t.to(device=device, dtype=dtype)
+    return out.clone() if out.data_ptr() == t.data_ptr() else out
+
+
+def train_params(tree, cfg, device=None) -> Dict:
+    """Leaf tensors to train, in the reference's dtypes: ``cfg.dtype``
+    for the matrices, float32 for :data:`F32_LEAVES`, each a leaf that
+    requires grad, on ``device``.  ``tree`` is a nested dict (or list) of
+    numpy arrays: the reference's exported pytree, the port's
+    ``init_params`` or a loaded checkpoint; bf16 leaves may come as raw
+    ``|V2`` bytes or ``uint16`` views."""
+    from .tree import leaves_with_path, unflatten
+    out = []
+    for path, leaf in leaves_with_path(tree):
+        dt = torch.float32 if path[-1] in F32_LEAVES \
+            else _torch_dtype(cfg.dtype)
+        out.append(to_tensor(leaf, dt, device).requires_grad_())
+    return unflatten(tree, out)

@@ -4,7 +4,10 @@ A tensor on the CPU goes to the plain PyTorch version in :mod:`.ref`.  A
 CUDA tensor launches the hand-written kernel from ``csrc/`` on the
 current stream, or raises: when the library did not build, when a launch
 fails, or when the inputs are not what the kernel takes.  There is no
-fallback from a CUDA tensor to the plain version.
+fallback from a CUDA tensor to the plain version.  The kernels have no
+backward: every wrapper raises when gradients are on and an input needs
+one (:func:`_no_grad_inputs`), on either device, rather than return an
+output that would drop them.
 
 Each kernel keeps a launch count in :data:`LAUNCHES`, raised by one
 exactly where the wrapper launches the kernel, so a run can show that its
@@ -60,6 +63,16 @@ def reset_launches() -> None:
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _no_grad_inputs(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels write through raw pointers into fresh tensors, which
+    carry no ``grad_fn``: raise rather than let a loss lose the gradients
+    of what went in."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad and the kernel "
+                           "has no backward; call it under torch.no_grad() "
+                           "or on tensors that need no gradient")
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -145,6 +158,7 @@ def dedup_matmul(x, pool, block_map, out_dtype=None):
     pool 16-byte aligned with ``bk`` and ``bn`` rows of whole 16-byte
     units.  The body and the K split come from :func:`matmul_plan`; the
     result is the same bits from call to call."""
+    _no_grad_inputs("dedup_matmul", x, pool)
     if x.device.type == "cpu":
         return ref.dedup_matmul(x, pool, block_map, out_dtype=out_dtype)
     if x.device.type != "cuda":
@@ -201,6 +215,7 @@ def dedup_embedding_striped(ids, pool, block_map, width=None):
     concatenates), one warp an output row, with 32- or 64-bit offsets
     (:func:`gather_index_bits`); the result is bit-equal to :func:`ref.
     dedup_embedding_striped`."""
+    _no_grad_inputs("dedup_embedding", pool)
     gh, gw = block_map.shape
     n, bh, bw = pool.shape
     width = gw * bw if width is None else int(width)
@@ -262,6 +277,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     once.  It skips key tiles the mask hides entirely unless the call can
     produce a row with no visible key, which then keeps the plain
     version's mean of v."""
+    _no_grad_inputs("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale,
@@ -335,6 +351,7 @@ def lsh_signature(blocks, proj, bias, r: float):
     divide by r rounded to fp32, as numpy does, and take ragged n, dim
     and nh.  The result may differ from the plain version only at a
     bucket edge (:func:`ref.lsh_edges`)."""
+    _no_grad_inputs("lsh_signature", blocks, proj, bias)
     if blocks.device.type == "cpu":
         return ref.lsh_signature(blocks, proj, bias, r)
     if blocks.device.type != "cuda":

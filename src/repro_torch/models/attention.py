@@ -113,7 +113,10 @@ def prefill_attend(q, k, v, *, causal: bool = True, window: int = 0,
     """Attention of a whole prompt: causal self-attention (q, k, v over
     the same positions), or with ``causal=False`` an encoder's
     self-attention or a cross-attention (Sq != Skv).  CUDA tensors take
-    :func:`flash_prefill` (the kernel), CPU tensors :func:`attend`."""
+    :func:`flash_prefill` (the kernel), CPU tensors :func:`attend`.  The
+    kernel has no backward and raises on inputs that need a gradient;
+    a loss asks for ``kernel=False`` (``attend`` under autograd, as the
+    reference differentiates its ``attend``)."""
     if kernel and q.device.type == "cuda":
         return flash_prefill(q, k, v, causal=causal, window=window,
                              softcap=softcap)

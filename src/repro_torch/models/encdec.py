@@ -9,7 +9,10 @@ causal and reach the ``flash_attention`` kernel on CUDA tensors with
 through ``decode_attend``.  As in ``models.transformer``: the layer scans
 are Python loops, a layer group is stacked or a per-layer list, the
 caches are preallocated and written in place, and :func:`init_params`
-draws numpy float32 arrays from a seed.  ``loss`` comes with training.
+draws numpy float32 arrays from a seed.  :func:`loss` runs the encoder
+and the decoder through the plain attention under autograd, each layer
+recomputed in the backward with ``cfg.remat`` (the reference's
+``jax.checkpoint`` of both scans).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import decode_attend, prefill_attend
@@ -116,16 +120,30 @@ def _cross_attn(h, p, cfg, enc_kv, kernel: bool, single: bool = False):
                p["co"].to(h.dtype)).to(h.dtype)
 
 
+def _layers(x, group, n: int, body, cfg: ModelConfig):
+    """``x = body(x, lp)`` over the ``n`` layers of a group; with
+    ``cfg.remat`` and gradients on, each layer is recomputed in the
+    backward instead of keeping its activations."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(n):
+        lp = layer_at(group, i)
+        x = checkpoint(body, x, lp, use_reentrant=False) if remat \
+            else body(x, lp)
+    return x
+
+
 def encode(params, cfg: ModelConfig, frames, kernel: bool = True):
     """frames: [B, S, D] precomputed embeddings (frontend stub)."""
     x = frames.to(getattr(torch, cfg.dtype))
     x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
-    for i in range(cfg.enc_layers):
-        lp = layer_at(params["enc_blocks"], i)
+
+    def body(x, lp):
         a, _ = _self_attn(_ln(x, lp["ln1"]), lp["attn"], cfg, causal=False,
                           kernel=kernel)
         x = x + a
-        x = x + mlp(_ln(x, lp["ln2"]), lp["mlp"], "gelu", False)
+        return x + mlp(_ln(x, lp["ln2"]), lp["mlp"], "gelu", False)
+
+    x = _layers(x, params["enc_blocks"], cfg.enc_layers, body, cfg)
     return _ln(x, params["enc_norm"])
 
 
@@ -152,15 +170,28 @@ def decode_train(params, cfg: ModelConfig, tokens, enc_out,
                  kernel: bool = True):
     """The decoder over a whole token sequence -> logits [B, S, V]."""
     x = _dec_embed(params, tokens)
-    for i in range(cfg.num_layers):
-        lp = layer_at(params["dec_blocks"], i)
+
+    def body(x, lp):
         a, _ = _self_attn(_ln(x, lp["ln1"]), lp["attn"], cfg, causal=True,
                           kernel=kernel)
         x = x + a
         x = x + _cross_attn(_ln(x, lp["lnc"]), lp["cross"], cfg,
                             _cross_kv(lp["cross"], cfg, enc_out), kernel)
-        x = x + mlp(_ln(x, lp["ln2"]), lp["mlp"], "gelu", False)
+        return x + mlp(_ln(x, lp["ln2"]), lp["mlp"], "gelu", False)
+
+    x = _layers(x, params["dec_blocks"], cfg.num_layers, body, cfg)
     return _logits(params, x)
+
+
+def loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Mean next-token cross entropy of the decoder over
+    ``batch["labels"]``, the encoder fed ``batch["frames"]``; the plain
+    attention throughout, log-softmax in fp32."""
+    enc = encode(params, cfg, batch["frames"], kernel=False)
+    logits = decode_train(params, cfg, batch["tokens"], enc, kernel=False)
+    lp = torch.log_softmax(logits.to(F32), dim=-1)
+    ll = torch.gather(lp, -1, batch["labels"][..., None].long())[..., 0]
+    return -ll.mean()
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,

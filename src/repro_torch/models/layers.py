@@ -22,16 +22,46 @@ import torch.nn.functional as F
 F32 = torch.float32
 
 
+class LowPrecisionDot(torch.autograd.Function):
+    """``a2 @ b`` of two 2-D operands in one low precision (bf16), written
+    in fp32, with the reference's VJP of ``jnp.matmul(...,
+    preferred_element_type=F32)``: each operand's gradient is the fp32
+    cotangent times the other operand widened to fp32, summed in fp32 and
+    rounded once to the operand's dtype.  On the card the forward is
+    cuBLAS's bf16 product with fp32 output and the backward two fp32
+    GEMMs; elsewhere the operands are widened first (their products are
+    exact in fp32, so the forward is the same math)."""
+
+    @staticmethod
+    def forward(ctx, a2, b):
+        ctx.save_for_backward(a2, b)
+        if a2.device.type == "cuda":
+            return torch.mm(a2, b, out_dtype=F32)
+        return torch.mm(a2.to(F32), b.to(F32))
+
+    @staticmethod
+    def backward(ctx, g):
+        a2, b = ctx.saved_tensors
+        g = g.to(F32)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.mm(g, b.to(F32).T).to(a2.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.mm(a2.to(F32).T, g).to(b.dtype)
+        return ga, gb
+
+
 def dot(a, b):
     """``a @ b`` with an fp32 result, operands promoted as jnp.matmul
     promotes them.  On the card a bf16 product accumulates in fp32 inside
-    cuBLAS and writes fp32; elsewhere bf16 operands are widened first
+    cuBLAS and writes fp32 (:class:`LowPrecisionDot`, which carries the
+    reference's gradient); elsewhere bf16 operands are widened first
     (their products are exact in fp32, so the sum is the same math)."""
     dt = torch.promote_types(a.dtype, b.dtype)
     if dt == F32 or a.device.type != "cuda":
         return torch.matmul(a.to(F32), b.to(F32))
     a2 = a.to(dt).reshape(-1, a.shape[-1])
-    out = torch.mm(a2, b.to(dt), out_dtype=F32)
+    out = LowPrecisionDot.apply(a2, b.to(dt))
     return out.reshape(a.shape[:-1] + (b.shape[-1],))
 
 

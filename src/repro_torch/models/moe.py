@@ -9,9 +9,10 @@ Supports arctic's parallel dense-FFN residual (``dense_ff``).
 
 What differs from the reference: ``jax.lax.top_k`` puts the lower index
 first on ties and ``torch.topk`` promises no order, so the selection is a
-stable descending sort; the dispatch scatter is ``index_copy_``, whose
-order among the dropped tokens (all written to the overflow row) is
-unspecified, which no kept slot can see.
+stable descending sort; the dispatch scatter is ``index_copy`` (out of
+place, so autograd carries it), whose order among the dropped tokens
+(all written to the overflow row) is unspecified, which no kept slot
+can see.
 """
 from __future__ import annotations
 
@@ -81,9 +82,10 @@ def moe_block(x, p, moe: MoEConfig, act: str, gated: bool):
     gate_vals, slots, keeps, C = route(xt, p, moe)
 
     # dispatch: scatter token rows into [E*C + 1, D] (dropped -> last row)
-    disp = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
     tok_rows = xt[:, None, :].expand(T, K, D).reshape(T * K, D)
-    disp.index_copy_(0, slots.reshape(-1), tok_rows)
+    disp = torch.zeros((E * C + 1, D), dtype=xt.dtype,
+                       device=xt.device).index_copy(0, slots.reshape(-1),
+                                                    tok_rows)
     xe = disp[: E * C].reshape(E, C, D)
 
     # grouped expert FFN

@@ -1,5 +1,5 @@
 """Decoder-only LM covering the dense / moe / ssm / hybrid / vlm families:
-init, forward, prefill and decode.
+init, the differentiable forward and its loss, prefill and decode.
 
 Counterpart of ``repro.models.transformer``.  Layers are grouped into
 homogeneous stacks as in the reference (kimi-k2 = its dense first layer,
@@ -21,8 +21,14 @@ layers).  What differs from the reference:
     a list of per-layer dicts.
   * :func:`init_params` draws from a numpy ``Generator`` (JAX's PRNG
     cannot be reproduced in torch) with the reference's shapes and
-    scales, as float32 arrays; the dtype each leaf is served in is
-    decided where the weights are carried over (``repro_torch.convert``).
+    scales, as float32 arrays; the dtype each leaf is served or trained
+    in is decided where the weights are carried over
+    (``repro_torch.convert``).
+  * :func:`loss` runs :func:`forward` with ``kernel=False`` under
+    autograd: the reference differentiates its plain ``attend``, and the
+    kernels have no backward.  ``cfg.remat`` recomputes each layer in
+    the backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` of the scan body).
 
 The encoder-decoder family (whisper) is ``models.encdec``.
 """
@@ -34,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import decode_attend, prefill_attend
@@ -268,8 +275,18 @@ def _run_group(x, gparams, g: GroupSpec, cfg: ModelConfig, positions,
     """The layers of one group.  ``cache`` (decode): the group's cache,
     read at ``pos`` and written in place; ``fill`` (prefill): the group's
     fresh cache, whose first S positions receive each layer's k and v and
-    whose states receive each layer's final conv and SSM states."""
+    whose states receive each layer's final conv and SSM states.  With
+    ``cfg.remat``, gradients on and neither, each layer is recomputed in
+    the backward instead of keeping its activations."""
+    remat = cfg.remat and cache is None and fill is None \
+        and torch.is_grad_enabled()
     for i in range(g.n):
+        if remat:
+            x = checkpoint(
+                lambda x, lp=layer_at(gparams, i), w=g.windows[i]: _block(
+                    x, lp, w, cfg, g.kind, positions, kernel)[0],
+                x, use_reentrant=False)
+            continue
         c = None if cache is None else {k: v[i] for k, v in cache.items()}
         x, ys = _block(x, layer_at(gparams, i), g.windows[i], cfg, g.kind,
                        positions, kernel, cache=c, pos=pos)
@@ -298,8 +315,9 @@ def _embed_inputs(params, cfg: ModelConfig, tokens, img_embeds=None):
 
 def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
             kernel: bool = True):
-    """Eval forward -> logits [B, S_total, V] (S_total counts the image
-    patches of the VLM stub)."""
+    """Training / eval forward -> logits [B, S_total, V] (S_total counts
+    the image patches of the VLM stub).  Differentiable with
+    ``kernel=False``; the kernel route is for serving."""
     x = _embed_inputs(params, cfg, tokens, img_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for g in build_groups(cfg):
@@ -307,6 +325,20 @@ def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
     x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
     return unembed(x, _head(params, cfg), cfg.tie_embeddings,
                    cfg.final_softcap)
+
+
+def loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Mean next-token cross entropy over ``batch["labels"]``: the
+    forward through the plain attention, the VLM stub's image positions
+    dropped, log-softmax in fp32."""
+    logits = forward(params, cfg, batch["tokens"], batch.get("image_embeds"),
+                     kernel=False)
+    labels = batch["labels"]
+    if cfg.vlm_stub and logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]      # drop image positions
+    lp = torch.log_softmax(logits.to(F32), dim=-1)
+    ll = torch.gather(lp, -1, labels[..., None].long())[..., 0]
+    return -ll.mean()
 
 
 # ---------------------------------------------------------------- serving ---

@@ -22,8 +22,13 @@ Sharded slab: the kernels at a block map into the staging tail as above;
 cuda-mode sharded logits 1e-5 of the host-mode sharded run, its routes
 and borrow counters exactly; LM tokens equal to torch mode.  The other
 families (fp32, reduced): prefill logits through the kernel route within
-1e-4 of the plain attention, greedy tokens equal.
+1e-4 of the plain attention, greedy tokens equal.  Training: ``dot``'s
+bf16 backward equal to the reference's VJP computed by hand; a bf16
+deepseek layer's gradients within cosine 0.99 of fp32's; each wrapper
+raises on a CUDA input that needs a gradient, launching nothing.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -34,11 +39,14 @@ from repro_torch.data.pipeline import SyntheticTextTask
 from repro_torch.db import DedupDB
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.serve import build_lm_store, build_store
+from repro_torch.launch.steps import value_and_grad
 from repro_torch.models import build
 from repro_torch.models.layers import dot
+from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import (EmbeddingServingEngine,
                                         LMServingEngine, StorageModel,
                                         WeightServer)
+from repro_torch.tree import leaves_with_path, tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -793,3 +801,84 @@ def test_sharded_lm_engine_cuda_matches_torch_mode(cuda_device):
         assert srv.sharded.tail_reads["unblock"] > 0
     for a, b in zip(out["cuda"], out["torch"]):
         np.testing.assert_array_equal(a, b)
+
+
+# -------------------------------------------------------------- training --
+def test_dot_bf16_backward_is_the_reference_vjp(cuda_device):
+    """``dot`` of bf16 operands on the card (fp32 out) has a gradient, and
+    it is the reference's VJP: the fp32 cotangent times the other operand
+    widened to fp32, rounded once to bf16."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(2, 150, 512, generator=g).to(cuda_device, torch.bfloat16)
+    b = torch.randn(512, 384, generator=g).to(cuda_device, torch.bfloat16)
+    cot = torch.randn(2, 150, 384, generator=g).to(cuda_device)
+    a.requires_grad_()
+    b.requires_grad_()
+    out = dot(a, b)
+    assert out.dtype == torch.float32 and out.grad_fn is not None
+    out.backward(cot)
+    c2 = cot.reshape(-1, 384)
+    a2 = a.detach().reshape(-1, 512)
+    assert torch.equal(a.grad.reshape(-1, 512),
+                       (c2 @ b.detach().float().T).to(torch.bfloat16))
+    assert torch.equal(b.grad, (a2.float().T @ c2).to(torch.bfloat16))
+
+
+def test_bf16_deepseek_layer_gradients_track_fp32(cuda_device):
+    """One deepseek-7b layer at full width (d 4096, 32 heads of 128, d_ff
+    11008; vocabulary cut to 512) in bf16 and in fp32 from the same
+    (bf16-rounded) weights: every gradient leaf within cosine 0.99 of the
+    fp32 one, and the loss launched no kernel (it runs the plain
+    attention, whatever ``attention=`` says)."""
+    cfg = dataclasses.replace(get_config("deepseek-7b"), num_layers=1,
+                              vocab=512)
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    p16 = convert.train_params(init_params(cfg, 0), bf16, cuda_device)
+    p32 = tree_map(lambda t: t.detach().float().requires_grad_(), p16)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, 512, (1, 129)).astype(
+        np.int32)).to(cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    grads = []
+    ops.reset_launches()
+    for c, params in ((bf16, p16),
+                      (dataclasses.replace(cfg, dtype="float32"), p32)):
+        api = build(c)
+        loss, g = value_and_grad(lambda p: api.loss(p, batch), params)
+        assert bool(torch.isfinite(loss))
+        grads.append(g)
+    assert sum(ops.LAUNCHES.values()) == 0
+    for (path, gb), (_, gf) in zip(leaves_with_path(grads[0]),
+                                   leaves_with_path(grads[1])):
+        assert gb.dtype == (torch.float32 if path[-1] in convert.F32_LEAVES
+                            else torch.bfloat16)
+        a, b = gb.float().flatten(), gf.float().flatten()
+        cos = float(a @ b / (a.norm() * b.norm()))
+        assert cos >= 0.99, (path, cos)
+
+
+@pytest.mark.parametrize("name", sorted(ops.LAUNCHES))
+def test_kernel_wrappers_refuse_inputs_that_need_grad_on_the_card(
+        cuda_device, name):
+    dev = cuda_device
+    pool = torch.randn(4, 64, 64, device=dev, requires_grad=True)
+    bmap = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=dev)
+    q = torch.randn(1, 64, 2, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.randn(1, 64, 2, 64, device=dev, dtype=torch.bfloat16)
+    blocks = torch.randn(8, 64, device=dev, requires_grad=True)
+    calls = {
+        "dedup_matmul": lambda: ops.dedup_matmul(
+            torch.randn(3, 128, device=dev), pool, bmap),
+        "dedup_embedding": lambda: ops.dedup_embedding(
+            torch.tensor([0, 9], dtype=torch.int32, device=dev), pool,
+            torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=dev)),
+        "flash_attention": lambda: ops.flash_attention(q, kv, kv),
+        "lsh_signature": lambda: ops.lsh_signature(
+            blocks, torch.randn(64, 4, device=dev),
+            torch.zeros(4, device=dev), 1.0),
+    }
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        calls[name]()
+    assert ops.LAUNCHES == before
