@@ -10,6 +10,15 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      power limit of the card;
   2. build   — compile the hand-written kernels from ``src/repro_torch/
      kernels/csrc`` with nvcc for sm_90a, one process per source;
+  2a. dry-run + hw — start the ``[dryrun]`` cells (``python -m
+     repro_torch.launch.dryrun`` on the production meshes at full size,
+     one subprocess a cell on the host, no card: deepseek-7b train_4k and
+     qwen2-72b prefill_32k on 16x16, mamba2-1.3b decode_32k on 2x16x16,
+     deepseek-7b decode_32k as ``dedup_serving`` and
+     ``dedup_serving_dense_ref``, qwen3-14b long_500k skipped with the
+     reference's reason), read back after 7c; ``[hw]``: the card's name
+     and power limit, its bf16 GEMM rate (8192^3, ``torch.matmul``) and
+     device-to-device copy bandwidth beside the roofline's ``HW``;
   2b. index  — the word2vec store below built twice, its Alg.-1 index
      signed on the card (``index_mode="cuda"``, the ``lsh_signature``
      kernel) and on the host (the reference's numpy routine): equal
@@ -145,15 +154,30 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      loss finite, the last 5 at least 0.5 below the first 5; step ms
      median and spread, tokens/s, peak memory), ``[train-split]`` (fwd +
      bwd against ``opt.update``), ``[train-profile]`` (device busy share
-     and top device ops of 3 steps), ``[train-resume]`` (6 steps, and 3
-     checkpointed then resumed with ``--resume auto``: losses within
-     1e-3) and ``[train-compress]`` (``--compress-grads``: the last loss
-     within 0.25 of the uncompressed run's); ``ops.LAUNCHES`` before and
+     and top device ops of 3 steps), ``[train-resume]`` (at depth 2: 6
+     steps, and 3 checkpointed then resumed with ``--resume auto``:
+     losses within 1e-3) and ``[train-compress]`` (depth 2,
+     ``--compress-grads``: the last loss within 0.25 of the uncompressed
+     run's); ``ops.LAUNCHES`` before and
      after: training launches no kernel (the loss runs the plain
      attention, as the reference's does);
+  7c. distribution — ``[pipeline]``: ``pipeline_apply`` (GPipe, 2
+     stages of 2 of deepseek-7b's full-width layers on ``cuda:0``, 4
+     microbatches of 1 x 512, prefill through ``flash_attention``):
+     bit-equal to the unpipelined forward, 16 launches, bubble 0.2;
+     ``[dist-step]``: the train step the dry-run traces, run for real on
+     a (1, 1) ``("data", "model")`` mesh over a one-rank NCCL group,
+     params and AdamW state as DTensors placed by ``param_specs`` /
+     ``state_specs``: 3 losses equal to ``[train]``'s first 3; then the
+     ``[dryrun]`` lines (status, mesh, per-device FLOPs, bytes,
+     collective bytes by kind, argument bytes, dominant term,
+     useful_flops_ratio); ``[slab-mesh]`` runs inside 5c:
+     ``stacked_slab(make_shard_mesh(4))`` of the 4-shard store, its
+     local tensor bit-equal to the per-shard stack and a
+     ``dedup_embedding`` gather through it equal to each shard's own;
   8. a ``{"kernels": [...]}`` line with every ported kernel's launches
-     on its path (phases 2b, 4, 5, 5b, 5c, 6, 6a and 7), its times and
-     its bound;
+     on its path (phases 2b, 4, 5, 5b, 5c, 6, 6a, 7 and 7c), its times
+     and its bound;
   9. last line: ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure (the script catches nothing), so any
@@ -266,6 +290,8 @@ LM_TRAFFIC_RATE, LM_TRAFFIC_SLO_MS = 20.0, 60000.0
 # and resumed, the same 6 steps with --compress-grads
 TRAIN_DEPTH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 4, 512, 3e-4
 TRAIN_STEPS, RESUME_STEPS, RESUME_AT, TRAIN_SPLIT_STEPS = 20, 6, 3, 3
+# the resume and compression runs at depth 2 (time: the script's limit)
+RESUME_DEPTH = 2
 # the dedup-masked fine-tune (paper Sec. 4.3) of lm-v1 on the LM store,
 # fp32, Adafactor (weight decay 0: a zero gradient makes a zero update)
 FT_STEPS, FT_BATCH, FT_SEQ = 3, 2, 256
@@ -2295,6 +2321,8 @@ def shards_phase(torch, ops, ref, url, heads, batches, capacity, fstore,
         if placement == "hash" and kernel_line is None:
             kernel_line = shard_kernel_checks(torch, ops, ref, srv, store,
                                               *batches[-1])
+        if (n, placement) == (4, "sharers"):
+            slab_mesh_check(torch, ops, srv)
         if (n, placement) == (2, "sharers"):
             slab = srv.sharded.stacked_slab()
             for s_, pool in enumerate(srv.sharded.pools):
@@ -2381,16 +2409,17 @@ def train_args(*extra):
                        "--device", DEVICE, *map(str, extra)])
 
 
-def run_train(torch, ops, cfg, tag, *extra):
-    """One ``launch.train.train`` run on the card, in a window of its own:
-    no kernel may launch (the loss runs the plain attention).  Returns
-    its result and prints losses, step times, tokens/s and peak memory."""
+def run_train(torch, ops, cfg, tag, *extra, init=None):
+    """One ``launch.train.train`` run on the card (from the numpy ``init``
+    tree where given), in a window of its own: no kernel may launch (the
+    loss runs the plain attention).  Returns its result and prints
+    losses, step times, tokens/s and peak memory."""
     import numpy as np
     from repro_torch.launch.train import train
     before = dict(ops.LAUNCHES)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = train(cfg, train_args(*extra))
+    out = train(cfg, train_args(*extra), init=init)
     wall = time.perf_counter() - t0
     if ops.LAUNCHES != before:
         raise AssertionError(f"{tag}: training launched kernels: "
@@ -2474,9 +2503,13 @@ def train_phase(torch, ops, tmpdir):
     criterion), the step split and profile, [train-resume] (checkpointed
     at RESUME_AT and resumed with --resume auto: losses within 1e-3 of
     the unbroken run's) and [train-compress] (--compress-grads: the last
-    loss within 0.25 of the uncompressed run's)."""
+    loss within 0.25 of the uncompressed run's), both at RESUME_DEPTH.
+    Each depth's params are drawn on the host once; the record keeps
+    TRAIN_DEPTH's (``init``) for [pipeline] and [dist-step]."""
+    import dataclasses
     import shutil
     import numpy as np
+    from repro_torch.models import build
     cfg = train_config()
     n = cfg.param_count() + (2 * TRAIN_DEPTH + 1) * cfg.d_model
     log(f"[train] {LM_ARCH} d_model={cfg.d_model} heads={cfg.num_heads}x"
@@ -2485,8 +2518,11 @@ def train_phase(torch, ops, tmpdir):
         f"optimizer={cfg.optimizer} lr={TRAIN_LR} batch={TRAIN_BATCH}x"
         f"{TRAIN_SEQ}")
     t0 = time.perf_counter()
+    init = build(cfg).init(SEED, TRAIN_SEQ * 2)
+    log(f"[train] depth={TRAIN_DEPTH} host init "
+        f"{time.perf_counter() - t0:.1f}s")
     out = run_train(torch, ops, cfg, "[train]", "--steps", TRAIN_STEPS,
-                    "--overfit")
+                    "--overfit", init=init)
     losses = out["losses"]
     drop = float(np.mean(losses[:5]) - np.mean(losses[-5:]))
     if drop < 0.5:
@@ -2496,38 +2532,42 @@ def train_phase(torch, ops, tmpdir):
                                      out["opt_state"])
     rec = dict(step_ms=out["step_ms"], peak_gb=out["peak_gb"], drop=drop,
                fwd_bwd_ms=fb_ms, update_ms=up_ms, busy_share=busy,
-               params=n)
+               params=n, losses=losses, init=init)
     del out
     log(f"[train] overfit drop={drop:.4f} (>= 0.5) "
         f"seconds={time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
     ck = str(Path(tmpdir) / "train_ckpt")
+    cfg = dataclasses.replace(cfg, num_layers=RESUME_DEPTH)
+    init = build(cfg).init(SEED, TRAIN_SEQ * 2)
     full = run_train(torch, ops, cfg, "[train-resume] unbroken",
-                     "--steps", RESUME_STEPS)["losses"]
+                     "--steps", RESUME_STEPS, init=init)["losses"]
     run_train(torch, ops, cfg, "[train-resume] first", "--steps", RESUME_AT,
-              "--ckpt", ck)
+              "--ckpt", ck, init=init)
     resumed = run_train(torch, ops, cfg, "[train-resume] resumed",
                         "--steps", RESUME_STEPS, "--ckpt", ck,
-                        "--resume", "auto")["losses"]
+                        "--resume", "auto", init=init)["losses"]
     shutil.rmtree(ck)
     err = float(np.max(np.abs(np.asarray(resumed)
                               - np.asarray(full[RESUME_AT:]))))
     if len(resumed) != RESUME_STEPS - RESUME_AT or err > 1e-3:
         raise AssertionError(f"[train-resume] resumed losses {resumed} vs "
                              f"unbroken {full[RESUME_AT:]}")
-    log(f"[train-resume] steps {RESUME_AT}-{RESUME_STEPS - 1}: "
+    log(f"[train-resume] depth={RESUME_DEPTH} steps {RESUME_AT}-"
+        f"{RESUME_STEPS - 1}: "
         f"max_abs_err={err:.3e} (tol 1e-3) "
         f"seconds={time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
     comp = run_train(torch, ops, cfg, "[train-compress]", "--steps",
-                     RESUME_STEPS, "--compress-grads")["losses"]
+                     RESUME_STEPS, "--compress-grads", init=init)["losses"]
     gap = abs(comp[-1] - full[-1])
     if gap >= 0.25:
         raise AssertionError(f"[train-compress] last loss {comp[-1]} vs "
                              f"uncompressed {full[-1]}")
-    log(f"[train-compress] last_loss={comp[-1]:.4f} uncompressed="
+    log(f"[train-compress] depth={RESUME_DEPTH} last_loss={comp[-1]:.4f} "
+        f"uncompressed="
         f"{full[-1]:.4f} gap={gap:.4f} (< 0.25) "
         f"seconds={time.perf_counter() - t0:.1f}")
     return rec
@@ -2633,6 +2673,291 @@ def finetune_phase(torch, ops, store, lm32):
     return lsh_launches
 
 
+# ---------------------------------------------------------- distribution --
+# the dry-run cells traced on the production meshes, one subprocess each
+# (a fake world of 256 or 512 ranks on the host's CPU; no card): (arch,
+# shape, multi-pod, variant)
+DRYRUN_CELLS = [("deepseek-7b", "train_4k", False, "baseline"),
+                ("qwen2-72b", "prefill_32k", False, "baseline"),
+                ("mamba2-1.3b", "decode_32k", True, "baseline"),
+                ("deepseek-7b", "decode_32k", False, "dedup_serving"),
+                ("deepseek-7b", "decode_32k", False,
+                 "dedup_serving_dense_ref"),
+                ("qwen3-14b", "long_500k", False, "baseline")]
+DRYRUN_TIMEOUT = 600
+# [pipeline]: deepseek-7b's full-width layers (depth TRAIN_DEPTH), two
+# stages of two layers, PIPE_MICRO microbatches of 1 x TRAIN_SEQ, prefill
+PIPE_STAGES, PIPE_MICRO = 2, 4
+DIST_STEPS = 3
+HW_GEMM, HW_COPY_BYTES = 8192, 1 << 30
+
+
+def dryrun_start(outdir):
+    """Start every [dryrun] cell in a subprocess of its own, with no card
+    visible and one thread each; they run while the card's phases do."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, multi, variant in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--variant", variant, "--out",
+               str(outdir)] + (["--multi-pod"] if multi else [])
+        procs.append(subprocess.Popen(cmd, env=env, cwd=str(ROOT),
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def dryrun_finish(procs, outdir, t_start):
+    """Wait for the [dryrun] cells and print one line a cell: status, mesh,
+    per-device FLOPs, bytes, collective bytes by kind, argument bytes,
+    the dominant roofline term and useful_flops_ratio.  Every cell must be
+    ok but qwen3-14b long_500k, which must be skipped with the
+    reference's reason."""
+    from repro_torch.launch.dryrun import cell_path
+    from repro_torch.roofline import HW
+    deadline = t_start + DRYRUN_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"[dryrun] HW peak_flops={HW['peak_flops']:.3e} hbm_bw="
+        f"{HW['hbm_bw']:.3e} nvlink_bw={HW['nvlink_bw']:.3e} (H100 SXM5 "
+        f"datasheet); {len(procs)} cells traced on the host beside the "
+        f"card's phases, read back {time.perf_counter() - t_start:.1f}s "
+        f"after their start (each cell's own trace_s below)")
+    for (arch, shape, multi, variant), p in zip(DRYRUN_CELLS, procs):
+        path = Path(cell_path(str(outdir), arch, shape, multi, variant))
+        if p.returncode != 0 or not path.exists():
+            raise AssertionError(f"[dryrun] {arch} {shape} {variant}: exit "
+                                 f"{p.returncode}: {p.stderr.read()[-2000:]}")
+        rec = json.loads(path.read_text())
+        tag = f"[dryrun] {arch} {shape} {variant} " \
+              f"{'multi' if multi else 'single'}-pod"
+        if shape == "long_500k":
+            if rec["status"] != "skipped" or \
+                    "full-attention" not in rec["reason"]:
+                raise AssertionError(f"{tag}: {rec['status']} "
+                                     f"{rec.get('reason')}")
+            log(f"{tag} status=skipped reason={rec['reason']!r}")
+            continue
+        if rec["status"] != "ok":
+            raise AssertionError(f"{tag}: {rec['status']} "
+                                 f"{rec.get('error', '')[:1500]}")
+        c, m, rl = rec["collectives"], rec["memory_analysis"], rec["roofline"]
+        kinds = {k: int(v) for k, v in c.items() if k not in (
+            "count", "total", "weighted_total") and v}
+        log(f"{tag} status=ok mesh={rec['meta']['mesh']} "
+            f"flops_per_device={rec['cost_analysis']['flops']:.4e} "
+            f"bytes={rec['cost_analysis']['bytes accessed']:.4e} "
+            f"collective_bytes={kinds} count={c['count']} "
+            f"argument_bytes={m['argument_size_in_bytes']} "
+            f"dominant={rl['dominant']} compute_s={rl['compute_s']:.4e} "
+            f"memory_s={rl['memory_s']:.4e} "
+            f"collective_s={rl['collective_s']:.4e} "
+            f"useful_flops_ratio={rl['useful_flops_ratio']:.4f} "
+            f"trace_s={rec['lower_seconds']:.1f}")
+        if not rec["cost_analysis"]["flops"] > 0 or \
+                not m["argument_size_in_bytes"] > 0:
+            raise AssertionError(f"{tag}: empty trace {rec}")
+
+
+def hw_phase(torch):
+    """[hw]: the card's name and power limit, its achieved bf16 GEMM rate
+    (HW_GEMM^3, torch.matmul, measured only) and device-to-device copy
+    bandwidth, each beside the roofline's datasheet number."""
+    from repro_torch.roofline import HW
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    log(f"[hw] {smi.stdout.strip().splitlines()[0]}")
+    n = HW_GEMM
+    a = torch.randn((n, n), device="cuda", dtype=torch.bfloat16)
+    b = torch.randn((n, n), device="cuda", dtype=torch.bfloat16)
+    ms = eager_ms(torch, lambda: torch.matmul(a, b), reps=20, warm=3)
+    rate = 2 * n ** 3 / (ms * 1e-3)
+    log(f"[hw] bf16 GEMM {n}^3: {ms:.3f}ms = {rate / 1e12:.1f} TFLOP/s "
+        f"({rate / HW['peak_flops']:.3f} of HW peak_flops "
+        f"{HW['peak_flops'] / 1e12:.0f} TFLOP/s)")
+    del a, b
+    src = torch.empty(HW_COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    ms = eager_ms(torch, lambda: dst.copy_(src), reps=20, warm=3)
+    bw = 2 * HW_COPY_BYTES / (ms * 1e-3)           # read + write
+    log(f"[hw] device copy {HW_COPY_BYTES >> 20} MiB: {ms:.3f}ms = "
+        f"{bw / 1e12:.3f} TB/s read+write ({bw / HW['hbm_bw']:.3f} of HW "
+        f"hbm_bw {HW['hbm_bw'] / 1e12:.2f} TB/s); nvlink_bw "
+        f"{HW['nvlink_bw'] / 1e9:.0f} GB/s not measured (one card)")
+    del src, dst
+    torch.cuda.empty_cache()
+
+
+def slab_mesh_check(torch, ops, srv):
+    """[slab-mesh]: ``stacked_slab(make_shard_mesh(n))`` of an n-shard
+    server: a DTensor on the one-rank NCCL serving mesh whose local tensor
+    is the per-shard stack bit for bit, and a dedup_embedding gather of
+    each shard's rows through it equal to the gather from that shard's
+    own slab (checks: uncounted launches)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_shard_mesh
+    sh = srv.sharded
+    mesh = make_shard_mesh(sh.num_shards)
+    slab = sh.stacked_slab(mesh)
+    plain = sh.stacked_slab()
+    if not isinstance(slab, DTensor) or slab.device.type != "cuda" \
+            or not torch.equal(slab.to_local(), plain):
+        raise AssertionError(f"[slab-mesh] stacked_slab(mesh) != the "
+                             f"per-shard stack ({type(slab).__name__})")
+    S, cap, l, bh, bw = plain.shape
+    flat = slab.to_local().reshape(S * cap * l, bh, bw)
+    g = torch.Generator().manual_seed(SEED)
+    worst = 0.0
+    for s in range(S):
+        own = sh.pools[s].slab[:cap].reshape(cap * l, bh, bw)
+        rows = torch.randint(0, cap * l * bh, (512,), generator=g,
+                             dtype=torch.int32).cuda()
+        own_map = torch.arange(cap * l, dtype=torch.int32).reshape(-1, 1)
+        got = ops.dedup_embedding_striped(rows, flat,
+                                          (own_map + s * cap * l).cuda())
+        want = ops.dedup_embedding_striped(rows, own, own_map.cuda())
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[slab-mesh] shard {s}: the gather "
+                                 f"through the mesh slab differs")
+        worst = max(worst, float((got - want).abs().max()))
+    log(f"[slab-mesh] mesh={mesh.mesh_dim_names}x{tuple(mesh.shape)} "
+        f"({mesh.device_type}, {sh.num_shards} shards on one card) "
+        f"placements={tuple(slab.placements)} shape={tuple(slab.shape)}: "
+        f"local == per-shard stack bit for bit; dedup_embedding of 512 rows "
+        f"a shard through it == the shard's own gather "
+        f"(max_abs_err={worst:.1e})")
+
+
+def dist_phase(torch, ops, train_rec):
+    """[pipeline] and [dist-step] on deepseek-7b at full width, depth
+    TRAIN_DEPTH, from the [train] run's initial params (``train_rec``'s
+    host init).  Returns the pipeline's flash_attention launches."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.distributed.pipeline import (bubble_fraction,
+                                                  pipeline_apply)
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+    cfg = train_config()
+    dev = torch.device(DEVICE)
+    train_losses = train_rec["losses"]
+    params = convert.train_params(train_rec.pop("init"), cfg, dev)
+
+    # ---- [pipeline]: the GPipe schedule, prefill, the kernel route ----
+    (g,) = transformer.build_groups(cfg)
+    per = TRAIN_DEPTH // PIPE_STAGES
+    half = transformer.GroupSpec(g.name, g.kind, per, g.windows[:per])
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab, (PIPE_MICRO, 1, TRAIN_SEQ))).to(dev)
+    pos = torch.arange(TRAIN_SEQ, device=dev)[None, :]
+    with torch.no_grad():
+        blocks = tree_map(lambda t: t.detach(), params[g.name])
+        x = torch.stack([transformer.embed(t, params["embed"].detach(),
+                                           cfg.embed_scale) for t in tokens])
+        stages = [tree_map(lambda a, s=s: a[s * per:(s + 1) * per], blocks)
+                  for s in range(PIPE_STAGES)]
+
+        def stage_fn(p, h):
+            return transformer._run_group(h, p, half, cfg, pos, True)
+
+        stage_fn(stages[0], x[0])                       # warm, uncounted
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = pipeline_apply(stage_fn, stages, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.LAUNCHES["flash_attention"]
+        ref = torch.stack([transformer._run_group(x[m], blocks, g, cfg, pos,
+                                                  True)
+                           for m in range(PIPE_MICRO)])
+    bubble = bubble_fraction(PIPE_STAGES, PIPE_MICRO)
+    log(f"[pipeline] {PIPE_STAGES} stages x {per} layers, {PIPE_MICRO} "
+        f"microbatches of 1x{TRAIN_SEQ} on {torch.cuda.get_device_name(0)}: "
+        f"wall={wall * 1e3:.1f}ms flash_attention launches={launches} "
+        f"(want {TRAIN_DEPTH * PIPE_MICRO}) bubble_fraction={bubble:.2f} "
+        f"out={tuple(out.shape)} {out.dtype} bit-equal to the unpipelined "
+        f"forward: {torch.equal(out, ref)}")
+    if launches != TRAIN_DEPTH * PIPE_MICRO or not torch.equal(out, ref) \
+            or not torch.isfinite(out).all():
+        raise AssertionError("[pipeline] launches or output differ")
+    del out, ref, x, stages, blocks
+
+    # ---- [dist-step]: the traced train step, run on a (1, 1) mesh ----
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed.sharding import (P, make_recipe,
+                                                  param_specs, placements,
+                                                  sanitize_spec, use_recipe)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    api = build(cfg)
+    opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR,
+                         schedule=cosine_schedule(TRAIN_LR, warmup=5,
+                                                  total=TRAIN_STEPS))
+
+    def place(t, spec, grad=False):
+        spec = sanitize_spec(spec, tuple(t.shape), mesh)
+        d = distribute_tensor(t.detach(), mesh, placements(spec, mesh))
+        return d.requires_grad_() if grad else d
+
+    # plain tensors the model makes (positions, masks) count as replicated,
+    # as in the dry-run's trace
+    with use_recipe(make_recipe("train")), implicit_replication():
+        pspecs = param_specs(params)
+        dparams = tree_map(lambda t, s: place(t, s, True), params, pspecs)
+        dstate = tree_map(place, opt.init(params),
+                          opt.state_specs(params, pspecs))
+        del params
+        batch = {k: place(torch.from_numpy(v).to(dev), P(("data",), None))
+                 for k, v in next(token_batches(cfg.vocab, TRAIN_BATCH,
+                                                TRAIN_SEQ,
+                                                seed=SEED)).items()}
+        step = make_train_step(api, opt)
+        losses = []
+        t0 = time.perf_counter()
+        with CommDebugMode() as comm:
+            for _ in range(DIST_STEPS):
+                dparams, dstate, m = step(dparams, dstate, batch)
+                loss = m["loss"]
+                losses.append(float(loss.full_tensor() if hasattr(
+                    loss, "full_tensor") else loss))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+    log(f"[dist-step] mesh=(1, 1) ('data', 'model') nccl, params and "
+        f"AdamW state as DTensors by param_specs / state_specs: "
+        f"{DIST_STEPS} steps wall={wall:.2f}s losses={losses} "
+        f"[train] first {DIST_STEPS}={train_losses[:DIST_STEPS]} "
+        f"equal={losses == train_losses[:DIST_STEPS]} "
+        f"collectives={comm.get_total_counts()} {counts}")
+    if losses != list(train_losses[:DIST_STEPS]):
+        raise AssertionError(f"[dist-step] losses {losses} != [train]'s "
+                             f"{train_losses[:DIST_STEPS]}")
+    del dparams, dstate, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     # ------------------------------------------------------ 1. device --
     import torch
@@ -2663,6 +2988,17 @@ def main() -> int:
     build_s = _build.build_all()
     log(f"[build] kernels={sorted(_build.KERNELS)} seconds={build_s:.2f} "
         f"flags={' '.join(_build.NVCC_FLAGS)}")
+
+    # ---------------- 2a. the dry-run cells (host, beside the card) + hw --
+    dry_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+    t_dry = time.perf_counter()
+    dry_procs = dryrun_start(dry_tmp.name)
+    try:
+        hw_phase(torch)
+    except BaseException:
+        for p in dry_procs:
+            p.kill()
+        raise
 
     # ------------------------------------------- 2b. index build (card) --
     t0 = time.perf_counter()
@@ -2840,11 +3176,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     ops.reset_launches()
     log(f"[train] LAUNCHES before={ops.LAUNCHES}")
-    train_phase(torch, ops, tmp.name)
+    train_rec = train_phase(torch, ops, tmp.name)
     log(f"[train] LAUNCHES after={ops.LAUNCHES}")
     if any(ops.LAUNCHES.values()):
         raise AssertionError("training launched a kernel")
     tmp.cleanup()
+
+    # ------------------- 7c. distribution: pipeline, dist-step, dry-run --
+    t0 = time.perf_counter()
+    launches["flash_attention"] += dist_phase(torch, ops, train_rec)
+    log(f"[dist] seconds={time.perf_counter() - t0:.1f}")
+    dryrun_finish(dry_procs, dry_tmp.name, t_dry)
+    dry_tmp.cleanup()
 
     # ------------------------------------------------------ 8. summary --
     csrc = "src/repro_torch/kernels/csrc"

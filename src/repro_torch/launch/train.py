@@ -72,8 +72,10 @@ def _device(name: str) -> torch.device:
     return device
 
 
-def train(cfg, args: argparse.Namespace) -> dict:
-    """Train ``cfg`` as the flags in ``args`` say.  Returns the losses,
+def train(cfg, args: argparse.Namespace, init=None) -> dict:
+    """Train ``cfg`` as the flags in ``args`` say.  ``init``, where given,
+    is the numpy tree ``init_params`` draws from ``--seed`` (a caller that
+    trains one config several times draws it once).  Returns the losses,
     the final params and optimizer state, and each step's seconds (host
     clock, ending when the step's loss reached the host)."""
     device = _device(args.device)
@@ -82,7 +84,9 @@ def train(cfg, args: argparse.Namespace) -> dict:
                          schedule=cosine_schedule(args.lr, warmup=5,
                                                   total=args.steps))
 
-    params = train_params(api.init(args.seed, args.seq * 2), cfg, device)
+    if init is None:
+        init = api.init(args.seed, args.seq * 2)
+    params = train_params(init, cfg, device)
     opt_state = opt.init(params)
     err_state = init_error_state(params) if args.compress_grads else None
 

@@ -22,11 +22,15 @@ traced scalars inside a layer scan).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (all_reduce, from_local, is_dtensor,
+                                    local, parallel_dims, shard_placements,
+                                    shard_range)
 from ..kernels import ops
 
 F32 = torch.float32
@@ -52,9 +56,46 @@ def _cap(s, cap: float):
     return s
 
 
+def _attend_dtensor(q, k, v, **kw):
+    """:func:`attend` of DTensors, local to each rank: batch and heads
+    stay sharded where q has them sharded, everything else is gathered
+    first (a sequence-parallel prompt), and each rank attends over its
+    shard with the plain version.  With fewer kv heads than a mesh dim
+    shards q's heads over (GQA), k and v are gathered over it and each
+    rank keeps the kv heads its q heads read (their gradients come back
+    as partial sums)."""
+    mesh = q.device_mesh
+    B, H, K = q.shape[0], q.shape[2], k.shape[2]
+    G = H // K
+    dims = parallel_dims(q, {0: (B,), 2: (H,)})
+    heads = [m for m, d in enumerate(dims) if d == 2]
+    nh = math.prod(mesh.shape[m] for m in heads)
+    hl = H // nh                                   # q heads a rank
+    kv_dims = list(dims)
+    if K % nh:
+        if len(heads) == 1 and (hl % G == 0 or G % hl == 0):
+            kv_dims[heads[0]] = None               # gather; slice below
+        else:
+            dims = kv_dims = [None if d == 2 else d for d in dims]
+            heads, hl = [], H
+    sliced = [m for m in heads if kv_dims[m] is None]
+    want = shard_placements(dims)
+    ql = local(q, want)
+    kl, vl = (local(t, shard_placements(kv_dims), sliced) for t in (k, v))
+    if sliced:
+        h0 = mesh.get_coordinate()[heads[0]] * hl
+        k0, k1 = h0 // G, (h0 + hl - 1) // G + 1
+        kl, vl = kl[:, :, k0:k1], vl[:, :, k0:k1]
+    return from_local(attend(ql, kl, vl, **kw), mesh, want, q.shape)
+
+
 def attend(q, k, v, *, causal: bool = True, window: int = 0,
            softcap: float = 0.0, q_offset: int = 0, kv_len=None,
            chunk: int = 1024, scale: Optional[float] = None):
+    if is_dtensor(q):
+        return _attend_dtensor(q, k, v, causal=causal, window=window,
+                               softcap=softcap, q_offset=q_offset,
+                               kv_len=kv_len, chunk=chunk, scale=scale)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
@@ -130,6 +171,21 @@ def decode_attend(q, k, v, *, kv_len: int, window: int = 0,
 
     ``kv_len`` is the filled length; ``q_pos`` the absolute position of
     the query token (defaults to kv_len - 1 after append)."""
+    kw = dict(kv_len=kv_len, window=window, softcap=softcap, q_pos=q_pos,
+              scale=scale)
+    if is_dtensor(k):
+        return _decode_attend_dtensor(q, k, v, **kw)
+    B, _, H, hd = q.shape
+    p = torch.softmax(_decode_scores(q, k, **kw), dim=-1)
+    return _decode_pv(p, v).reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _decode_scores(q, k, *, kv_len: int, window: int, softcap: float,
+                   q_pos: Optional[int], scale: Optional[float],
+                   start: int = 0):
+    """[B, K, G, S] fp32 scores of the query token against the cache
+    positions ``start`` .. ``start + S`` that ``k`` holds, masked from
+    ``kv_len`` on and outside the window."""
     B, _, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
     G = H // K
@@ -139,11 +195,42 @@ def decode_attend(q, k, v, *, kv_len: int, window: int = 0,
     qg = (q.to(F32) * scale).to(k.dtype).reshape(B, K, G, hd)
     s = torch.einsum("bkgd,bskd->bkgs", qg.to(F32), k.to(F32))
     s = _cap(s, softcap)
-    kv_pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    kv_pos = torch.arange(start, start + S, dtype=torch.int32,
+                          device=q.device)
     valid = kv_pos < kv_len
     if window:
         valid &= (q_pos - kv_pos) < window
-    s = torch.where(valid, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).to(F32), v.to(F32))
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+    return torch.where(valid, s, NEG_INF)
+
+
+def _decode_pv(p, v):
+    """[B, K, G, hd] fp32: the probabilities (cast to v's dtype, as the
+    reference casts them) times v."""
+    return torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).to(F32), v.to(F32))
+
+
+def _decode_attend_dtensor(q, k, v, **kw):
+    """:func:`decode_attend` of DTensors, split-KV (flash decoding): where
+    the cache is sharded over its sequence, each rank scores its chunk,
+    and the maxima, the sums and the probabilities' products with v are
+    all-reduced over the sequence's mesh dims; batch stays sharded where
+    the cache has it sharded; the rest is gathered first.  With no
+    sequence shard it is the plain version on each rank's batch shard."""
+    mesh = k.device_mesh
+    B, _, H, hd = q.shape
+    dims = parallel_dims(k, {0: (B,), 1: (k.shape[1],)})
+    q_want = shard_placements([0 if d == 0 else None for d in dims])
+    kd, vd = (t.redistribute(mesh, shard_placements(dims)) for t in (k, v))
+    ql = q.redistribute(mesh, q_want).to_local()
+    split = [m for m, d in enumerate(dims) if d == 1]
+    if not split:
+        out = decode_attend(ql, kd.to_local(), vd.to_local(), **kw)
+    else:
+        s = _decode_scores(ql, kd.to_local(), start=shard_range(kd, 1)[0],
+                           **kw)
+        m = all_reduce(s.amax(dim=-1), mesh, split, "max")
+        e = torch.exp(s - m[..., None])
+        p = e / all_reduce(e.sum(dim=-1), mesh, split)[..., None]
+        out = all_reduce(_decode_pv(p, vd.to_local()), mesh, split)
+        out = out.reshape(ql.shape[0], 1, H, hd).to(q.dtype)
+    return from_local(out, mesh, q_want, q.shape)

@@ -24,8 +24,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import (hint, is_dtensor, reshape, shard_cache,
+                                    write_seq)
 from .attention import decode_attend, prefill_attend
-from .layers import dot, layer_at, layer_norm, mlp
+from .layers import dot, layer_at, layer_norm, mlp, token_log_likelihood
 
 F32 = torch.float32
 
@@ -39,20 +41,27 @@ def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, max_dec: int = 4096) -> Dict:
+def init_params(cfg: ModelConfig, seed: int = 0, max_dec: int = 4096,
+                make=None) -> Dict:
     """float32 numpy params in the reference's tree, shapes and scales:
     every matrix normal * 0.02 (no depth scaling), ``pos_embed`` normal *
     0.01 with ``max_dec`` rows, layer norms one / zero; the encoder and
-    decoder layers stacked on a leading axis."""
+    decoder layers stacked on a leading axis.  ``make(shape)``, where
+    given, makes every leaf instead and nothing is drawn (the shape-only
+    path of ``registry.param_shapes``)."""
     rng = np.random.default_rng(seed)
     d, H, hd, f = cfg.d_model, cfg.num_heads, cfg.hd, cfg.d_ff
 
     def normal(shape, std):
+        if make is not None:
+            return make(shape)
         x = rng.standard_normal(shape, dtype=np.float32)
         x *= np.float32(std)
         return x
 
     def ln(*lead):
+        if make is not None:
+            return {"scale": make(lead + (d,)), "bias": make(lead + (d,))}
         return {"scale": np.ones(lead + (d,), np.float32),
                 "bias": np.zeros(lead + (d,), np.float32)}
 
@@ -88,19 +97,19 @@ def _self_attn(h, p, cfg, causal: bool, kernel: bool, cache_kv=None,
     at ``pos``."""
     B, S, _ = h.shape
     H, hd = cfg.num_heads, cfg.hd
-    q = dot(h, p["wq"].to(h.dtype)).reshape(B, S, H, hd)
-    k = dot(h, p["wk"].to(h.dtype)).reshape(B, S, H, hd).to(h.dtype)
-    v = dot(h, p["wv"].to(h.dtype)).reshape(B, S, H, hd).to(h.dtype)
+    q = reshape(dot(h, p["wq"].to(h.dtype)), B, S, H, hd)
+    k = reshape(dot(h, p["wk"].to(h.dtype)), B, S, H, hd).to(h.dtype)
+    v = reshape(dot(h, p["wv"].to(h.dtype)), B, S, H, hd).to(h.dtype)
     if cache_kv is None:
         out = prefill_attend(q, k, v, causal=causal, kernel=kernel)
         kv = (k, v)
     else:
         ck, cv = cache_kv
-        ck[:, pos:pos + S] = k
-        cv[:, pos:pos + S] = v
+        write_seq(ck, k, pos)
+        write_seq(cv, v, pos)
         out = decode_attend(q, ck, cv, kv_len=pos + 1)
         kv = (ck, cv)
-    return dot(out.reshape(B, S, H * hd),
+    return dot(reshape(out, B, S, H * hd),
                p["wo"].to(h.dtype)).to(h.dtype), kv
 
 
@@ -110,13 +119,13 @@ def _cross_attn(h, p, cfg, enc_kv, kernel: bool, single: bool = False):
     ``decode_attend`` over the full encoder length."""
     B, S, _ = h.shape
     H, hd = cfg.num_heads, cfg.hd
-    q = dot(h, p["cq"].to(h.dtype)).reshape(B, S, H, hd)
+    q = reshape(dot(h, p["cq"].to(h.dtype)), B, S, H, hd)
     k, v = enc_kv
     if single:
         out = decode_attend(q, k, v, kv_len=k.shape[1], q_pos=k.shape[1])
     else:
         out = prefill_attend(q, k, v, causal=False, kernel=kernel)
-    return dot(out.reshape(B, S, H * hd),
+    return dot(reshape(out, B, S, H * hd),
                p["co"].to(h.dtype)).to(h.dtype)
 
 
@@ -136,12 +145,14 @@ def encode(params, cfg: ModelConfig, frames, kernel: bool = True):
     """frames: [B, S, D] precomputed embeddings (frontend stub)."""
     x = frames.to(getattr(torch, cfg.dtype))
     x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+    x = hint(x, "residual")
 
     def body(x, lp):
         a, _ = _self_attn(_ln(x, lp["ln1"]), lp["attn"], cfg, causal=False,
                           kernel=kernel)
         x = x + a
-        return x + mlp(_ln(x, lp["ln2"]), lp["mlp"], "gelu", False)
+        return hint(x + mlp(_ln(x, lp["ln2"]), lp["mlp"], "gelu", False),
+                    "residual")
 
     x = _layers(x, params["enc_blocks"], cfg.enc_layers, body, cfg)
     return _ln(x, params["enc_norm"])
@@ -156,8 +167,8 @@ def _dec_embed(params, tokens, pos0: int = 0):
 def _cross_kv(lp, cfg, enc_out):
     B, S, _ = enc_out.shape
     H, hd = cfg.num_heads, cfg.hd
-    k = dot(enc_out, lp["ck"].to(enc_out.dtype)).reshape(B, S, H, hd)
-    v = dot(enc_out, lp["cv"].to(enc_out.dtype)).reshape(B, S, H, hd)
+    k = reshape(dot(enc_out, lp["ck"].to(enc_out.dtype)), B, S, H, hd)
+    v = reshape(dot(enc_out, lp["cv"].to(enc_out.dtype)), B, S, H, hd)
     return k.to(enc_out.dtype), v.to(enc_out.dtype)
 
 
@@ -169,7 +180,7 @@ def _logits(params, x):
 def decode_train(params, cfg: ModelConfig, tokens, enc_out,
                  kernel: bool = True):
     """The decoder over a whole token sequence -> logits [B, S, V]."""
-    x = _dec_embed(params, tokens)
+    x = hint(_dec_embed(params, tokens), "residual")
 
     def body(x, lp):
         a, _ = _self_attn(_ln(x, lp["ln1"]), lp["attn"], cfg, causal=True,
@@ -177,10 +188,11 @@ def decode_train(params, cfg: ModelConfig, tokens, enc_out,
         x = x + a
         x = x + _cross_attn(_ln(x, lp["lnc"]), lp["cross"], cfg,
                             _cross_kv(lp["cross"], cfg, enc_out), kernel)
-        return x + mlp(_ln(x, lp["ln2"]), lp["mlp"], "gelu", False)
+        return hint(x + mlp(_ln(x, lp["ln2"]), lp["mlp"], "gelu", False),
+                    "residual")
 
     x = _layers(x, params["dec_blocks"], cfg.num_layers, body, cfg)
-    return _logits(params, x)
+    return hint(_logits(params, x), "logits")
 
 
 def loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
@@ -189,9 +201,7 @@ def loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
     attention throughout, log-softmax in fp32."""
     enc = encode(params, cfg, batch["frames"], kernel=False)
     logits = decode_train(params, cfg, batch["tokens"], enc, kernel=False)
-    lp = torch.log_softmax(logits.to(F32), dim=-1)
-    ll = torch.gather(lp, -1, batch["labels"][..., None].long())[..., 0]
-    return -ll.mean()
+    return -token_log_likelihood(logits, batch["labels"]).mean()
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
@@ -217,21 +227,23 @@ def prefill(params, cfg: ModelConfig, frames, tokens,
     enc = encode(params, cfg, frames, kernel)
     B, S_dec = tokens.shape
     x = _dec_embed(params, tokens)
-    cache = init_cache(cfg, B, max_len or S_dec, enc.shape[1],
-                       dtype=x.dtype, device=x.device)
+    cache = shard_cache(init_cache(
+        cfg, B, max_len or S_dec, enc.shape[1], dtype=x.dtype,
+        device="meta" if is_dtensor(x) else x.device), x)
     cache["pos"] = S_dec
     for i in range(cfg.num_layers):
         lp = layer_at(params["dec_blocks"], i)
         a, (k, v) = _self_attn(_ln(x, lp["ln1"]), lp["attn"], cfg,
                                causal=True, kernel=kernel)
-        cache["k"][i, :, :S_dec] = k
-        cache["v"][i, :, :S_dec] = v
+        write_seq(cache["k"][i], k, 0)
+        write_seq(cache["v"][i], v, 0)
         x = x + a
         ekv = _cross_kv(lp["cross"], cfg, enc)
         cache["enc_k"][i], cache["enc_v"][i] = ekv
         x = x + _cross_attn(_ln(x, lp["lnc"]), lp["cross"], cfg, ekv, kernel)
-        x = x + mlp(_ln(x, lp["ln2"]), lp["mlp"], "gelu", False)
-    return _logits(params, x[:, -1:]), cache
+        x = hint(x + mlp(_ln(x, lp["ln2"]), lp["mlp"], "gelu", False),
+                 "residual")
+    return hint(_logits(params, x[:, -1:]), "logits"), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache: Dict, tokens):
@@ -254,4 +266,4 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens):
                             kernel=False, single=True)
         x = x + mlp(_ln(x, lp["ln2"]), lp["mlp"], "gelu", False)
     cache["pos"] = pos + 1
-    return _logits(params, x), cache
+    return hint(_logits(params, x), "logits"), cache

@@ -16,10 +16,16 @@ can see.
 """
 from __future__ import annotations
 
+
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import MoEConfig
+from torch.distributed.tensor import Replicate
+
+from ..distributed.sharding import (all_reduce, all_reduce_grad, from_local,
+                                    hint, is_dtensor, local, parallel_dims,
+                                    shard_placements, shard_range)
 from .layers import activation, dot, mlp
 
 F32 = torch.float32
@@ -75,18 +81,35 @@ def _edot(a, b):
 
 def moe_block(x, p, moe: MoEConfig, act: str, gated: bool):
     """x: [B, S, D] (or [B, 1, D] decode) -> same shape."""
+    if is_dtensor(x):
+        return _moe_dtensor(x, p, moe, act, gated)
     B, S, D = x.shape
-    T = B * S
-    xt = x.reshape(T, D)
+    xt = x.reshape(B * S, D)
+    yt = moe_experts(xt, p, moe, act, gated).to(x.dtype)
+    return _dense_residual(yt, xt, p, moe, act, gated).reshape(B, S, D)
+
+
+def moe_experts(xt, p, moe: MoEConfig, act: str, gated: bool,
+                experts=None):
+    """The routed experts' fp32 output [T, D] for the tokens xt [T, D].
+    ``experts`` = (first, count): only those experts run (``p``'s expert
+    weights hold just them; routing still sees every expert), and the
+    result is their share of the sum, which the caller reduces."""
+    T, D = xt.shape
     E, K = moe.num_experts, moe.top_k
     gate_vals, slots, keeps, C = route(xt, p, moe)
+    if experts is not None:            # other experts' slots -> drop row
+        e0, E = experts
+        mine = (slots >= e0 * C) & (slots < (e0 + E) * C)
+        slots = torch.where(mine, slots - e0 * C,
+                            torch.full_like(slots, E * C))
 
     # dispatch: scatter token rows into [E*C + 1, D] (dropped -> last row)
     tok_rows = xt[:, None, :].expand(T, K, D).reshape(T * K, D)
     disp = torch.zeros((E * C + 1, D), dtype=xt.dtype,
                        device=xt.device).index_copy(0, slots.reshape(-1),
                                                     tok_rows)
-    xe = disp[: E * C].reshape(E, C, D)
+    xe = hint(disp[: E * C].reshape(E, C, D), "moe_disp")
 
     # grouped expert FFN
     h = _edot(xe, p["ew1"].to(xe.dtype))
@@ -102,11 +125,51 @@ def moe_block(x, p, moe: MoEConfig, act: str, gated: bool):
                                      device=ye.device)], dim=0)
     per_k = ye_flat[slots.reshape(-1)].reshape(T, K, D)
     w = (gate_vals * keeps).to(per_k.dtype)                         # [T, K]
-    yt = torch.einsum("tkd,tk->td", per_k.to(F32), w.to(F32)).to(x.dtype)
+    return torch.einsum("tkd,tk->td", per_k.to(F32), w.to(F32))
 
-    if moe.dense_ff and "dw1" in p:                                 # arctic
+
+def _dense_residual(yt, xt, p, moe: MoEConfig, act: str, gated: bool):
+    """arctic's dense FFN beside the experts, added to their output."""
+    if moe.dense_ff and "dw1" in p:
         dense_p = {"w1": p["dw1"], "w2": p["dw2"]}
         if gated:
             dense_p["w3"] = p["dw3"]
-        yt = yt + mlp(xt, dense_p, act, gated).to(x.dtype)
-    return yt.reshape(B, S, D)
+        yt = yt + mlp(xt, dense_p, act, gated).to(yt.dtype)
+    return yt
+
+
+def _moe_dtensor(x, p, moe: MoEConfig, act: str, gated: bool):
+    """:func:`moe_block` of DTensors, expert parallel without an
+    all-to-all: the tokens stay sharded over the batch alone (every rank
+    of an expert mesh dim holds the same tokens), the experts stay
+    sharded over their axis (their d-dims gathered), each rank routes its
+    tokens over all experts and runs :func:`moe_experts` on its own, and
+    the shares are all-reduced over the expert mesh dims.  Capacity is
+    per batch shard (the tokens a rank routes), as in GShard's groups: a
+    token the whole batch's capacity would keep may be dropped here."""
+    mesh = x.device_mesh
+    B, S, D = x.shape
+    tokens = [m for m, d in enumerate(parallel_dims(x, {0: (B,)}))
+              if d == 0]
+    # a mesh dim that splits the tokens cannot split the experts too
+    ep = [m for m, d in enumerate(parallel_dims(p["ew1"], {
+        0: (moe.num_experts,)})) if d == 0 and m not in tokens]
+    bw = shard_placements([0 if m in tokens else None
+                           for m in range(mesh.ndim)])
+    ew = shard_placements([0 if m in ep else None
+                           for m in range(mesh.ndim)])
+    # each rank's use of a weight covers its own tokens (gradients partial
+    # over the batch's mesh dims); the routing's and the experts' inputs
+    # reach only its own experts' slots (partial over the experts' too)
+    xl = local(x, bw)
+    xt = xl.reshape(-1, D)
+    rep = [Replicate()] * mesh.ndim
+    pl = {k: local(v, ew, tokens) if k in ("ew1", "ew2", "ew3")
+          else local(v, rep, tokens + ep if k == "router" else tokens)
+          for k, v in p.items()}
+    e0, El = shard_range(p["ew1"], 0, ew)
+    yt = moe_experts(all_reduce_grad(xt, mesh, ep), pl, moe, act, gated,
+                     experts=(e0, El))
+    yt = all_reduce(yt, mesh, ep).to(x.dtype)
+    yt = _dense_residual(yt, xt, pl, moe, act, gated)
+    return from_local(yt.reshape(xl.shape), mesh, bw, x.shape)

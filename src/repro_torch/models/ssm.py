@@ -25,6 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import SSMConfig
+from torch.distributed.tensor import Replicate
+
+from ..distributed.sharding import (from_local, is_dtensor, local,
+                                    parallel_dims, shard_placements)
 from .layers import causal_conv1d, dot, rms_norm
 
 F32 = torch.float32
@@ -128,6 +132,9 @@ def mamba_mixer(x, p, d_model: int, s: SSMConfig,
 
     Prefill: x [B,S,D], returns (y, (conv_state, ssm_state)).
     Decode: x [B,1,D] with states threaded through."""
+    if is_dtensor(x):
+        return _mixer_dtensor(x, p, d_model, s, conv_state, ssm_state,
+                              decode)
     din, H, conv_ch = ssm_dims(d_model, s)
     gn = s.n_groups * s.d_state
     zxbcdt = dot(x, p["in_proj"].to(x.dtype)).to(x.dtype)
@@ -155,3 +162,30 @@ def mamba_mixer(x, p, d_model: int, s: SSMConfig,
     y = rms_norm(y * F.silu(z.to(F32)).to(x.dtype), p["ssm_norm"])
     out = dot(y, p["out_proj"].to(x.dtype)).to(x.dtype)
     return out, (conv_state, ssm_state)
+
+
+def _mixer_dtensor(x, p, d_model: int, s: SSMConfig, conv_state, ssm_state,
+                   decode: bool):
+    """:func:`mamba_mixer` of DTensors, data parallel: the mixer's weights
+    are gathered (their gradients come back as partial sums over the
+    batch's mesh dims), and each rank runs the plain mixer on its batch
+    shard (and its states' batch shard); the states come back sharded
+    over the batch alone."""
+    mesh = x.device_mesh
+    B = x.shape[0]
+    dims = parallel_dims(x, {0: (B,)})
+    want = shard_placements(dims)
+    batch = [m for m, d in enumerate(dims) if d == 0]
+    rep = [Replicate()] * mesh.ndim
+    pl = {k: local(v, rep, batch) if is_dtensor(v) else v
+          for k, v in p.items()}
+
+    def mine(t):
+        return None if t is None else local(t, want)
+
+    y, (cst, sst) = mamba_mixer(mine(x), pl, d_model, s, mine(conv_state),
+                                mine(ssm_state), decode)
+
+    def wrap(t):
+        return from_local(t, mesh, want, (B,) + tuple(t.shape[1:]))
+    return wrap(y), (wrap(cst), wrap(sst))

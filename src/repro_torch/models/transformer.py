@@ -43,9 +43,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import (hint, is_dtensor, reshape, shard_cache,
+                                    write_seq)
 from .attention import decode_attend, prefill_attend
 from .layers import (dot, embed, layer_at, mlp, norm, rms_norm, rotary,
-                     unembed)
+                     token_log_likelihood, unembed)
 from .moe import moe_block
 from .ssm import mamba_mixer, ssm_dims
 
@@ -101,28 +103,35 @@ def build_groups(cfg: ModelConfig) -> List[GroupSpec]:
 
 
 # ------------------------------------------------------------------- init ---
-def init_params(cfg: ModelConfig, seed: int = 0) -> Dict:
+def init_params(cfg: ModelConfig, seed: int = 0, make=None) -> Dict:
     """float32 numpy params in the reference's tree, shapes and scales
     (normal * 0.02; ``wo``, ``w2``, ``ew2``, ``dw2`` and ``out_proj`` also
     / sqrt(2 L); norms zero for rms, one for layer norm; qkv biases zero;
     mamba's ``dt`` log-uniform in [1e-3, 1e-1] stored as
     ``log(expm1(dt))``, ``A_log = log(1..H)``, ``Dp`` ones, ``ssm_norm``
-    zeros), every group stacked on a leading layer axis."""
+    zeros), every group stacked on a leading layer axis.  ``make(shape)``,
+    where given, makes every leaf instead and nothing is drawn (the
+    shape-only path of ``registry.param_shapes``)."""
     rng = np.random.default_rng(seed)
     d, H, K, hd, L = (cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.hd,
                       cfg.num_layers)
     out_scale = 0.02 / math.sqrt(2 * L)
 
     def normal(shape, std):
+        if make is not None:
+            return make(shape)
         x = rng.standard_normal(shape, dtype=np.float32)
         x *= np.float32(std)
         return x
 
+    def full(shape, fill=np.zeros):
+        return make(shape) if make is not None else fill(shape, np.float32)
+
     def norm_params(*lead):
         fill = np.zeros if cfg.norm_type == "rms" else np.ones
-        p = {"scale": fill(lead + (d,), np.float32)}
+        p = {"scale": full(lead + (d,), fill)}
         if cfg.norm_type == "layer":
-            p["bias"] = np.zeros(lead + (d,), np.float32)
+            p["bias"] = full(lead + (d,))
         return p
 
     def attn_params(n):
@@ -131,12 +140,12 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Dict:
              "wv": normal((n, d, K * hd), 0.02),
              "wo": normal((n, H * hd, d), out_scale)}
         if cfg.qkv_bias:
-            p["bq"] = np.zeros((n, H * hd), np.float32)
-            p["bk"] = np.zeros((n, K * hd), np.float32)
-            p["bv"] = np.zeros((n, K * hd), np.float32)
+            p["bq"] = full((n, H * hd))
+            p["bk"] = full((n, K * hd))
+            p["bv"] = full((n, K * hd))
         if cfg.qk_norm:
-            p["q_norm"] = np.zeros((n, hd), np.float32)
-            p["k_norm"] = np.zeros((n, hd), np.float32)
+            p["q_norm"] = full((n, hd))
+            p["k_norm"] = full((n, hd))
         return p
 
     def mlp_params(n, f, prefix=""):
@@ -162,18 +171,23 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Dict:
         s = cfg.ssm
         din, nh, conv_ch = ssm_dims(d, s)
         gn = s.n_groups * s.d_state
-        dt = np.exp(rng.uniform(math.log(1e-3), math.log(1e-1), (n, nh))
-                    ).astype(np.float32)
+        if make is not None:
+            dt_bias, a_log = make((n, nh)), make((n, nh))
+        else:
+            dt = np.exp(rng.uniform(math.log(1e-3), math.log(1e-1),
+                                    (n, nh))).astype(np.float32)
+            dt_bias = np.log(np.expm1(dt)).astype(np.float32)
+            a_log = np.tile(np.log(np.arange(1, nh + 1, dtype=np.float32)),
+                            (n, 1))
         return {
             "in_proj": normal((n, d, 2 * din + 2 * gn + nh), 0.02),
             "out_proj": normal((n, din, d), out_scale),
             "conv_w": normal((n, s.d_conv, conv_ch), 0.02),
-            "conv_b": np.zeros((n, conv_ch), np.float32),
-            "dt_bias": np.log(np.expm1(dt)).astype(np.float32),
-            "A_log": np.tile(np.log(np.arange(1, nh + 1, dtype=np.float32)),
-                             (n, 1)),
-            "Dp": np.ones((n, nh), np.float32),
-            "ssm_norm": np.zeros((n, din), np.float32),
+            "conv_b": full((n, conv_ch)),
+            "dt_bias": dt_bias,
+            "A_log": a_log,
+            "Dp": full((n, nh), np.ones),
+            "ssm_norm": full((n, din)),
         }
 
     def layer_params(kind, n):
@@ -214,9 +228,9 @@ def _attention(h, p, cfg: ModelConfig, positions, window: int,
     v = dot(h, p["wv"].to(h.dtype))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd).to(h.dtype)
+    q = reshape(q, B, S, H, hd)
+    k = reshape(k, B, S, K, hd)
+    v = reshape(v, B, S, K, hd).to(h.dtype)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -224,19 +238,23 @@ def _attention(h, p, cfg: ModelConfig, positions, window: int,
     k = rotary(k, positions, cfg.rope_theta).to(h.dtype)
 
     if cache_kv is None:                       # forward / prefill
+        q = hint(q, "attn_q")
+        k = hint(k, "attn_kv")
+        v = hint(v, "attn_kv")
         out = prefill_attend(q, k, v, window=window,
                              softcap=cfg.attn_softcap, kernel=kernel)
+        out = hint(out, "attn_o")
         new_kv = (k, v)
     else:                                      # decode: append then attend
         ck, cv = cache_kv
         # in place into the preallocated cache (the reference returns an
         # updated copy)
-        ck[:, pos:pos + S] = k
-        cv[:, pos:pos + S] = v
+        write_seq(ck, k, pos)
+        write_seq(cv, v, pos)
         out = decode_attend(q, ck, cv, kv_len=pos + 1, window=window,
                             softcap=cfg.attn_softcap)
         new_kv = (ck, cv)
-    out = dot(out.reshape(B, S, H * hd), p["wo"].to(h.dtype))
+    out = dot(reshape(out, B, S, H * hd), p["wo"].to(h.dtype))
     return out.to(h.dtype), new_kv
 
 
@@ -256,18 +274,21 @@ def _block(x, lp, window: int, cfg: ModelConfig, kind: str, positions,
             decode=cache is not None)
         ys["conv_state"], ys["ssm_state"] = cst, sst
         if kind == "ssm":
-            return x + m, ys
+            return hint(x + m, "residual"), ys
     a, (ys["k"], ys["v"]) = _attention(
         h, lp["attn"], cfg, positions, window, kernel,
         cache_kv=None if cache is None else (cache["k"], cache["v"]),
         pos=pos)
-    x = x + 0.5 * (a + m) if kind == "hybrid" else x + a
+    if kind == "hybrid":
+        x = hint(x + 0.5 * (a + m), "residual")
+    else:
+        x = hint(x + a, "residual")
     h2 = norm(x, lp["ln2"], cfg.norm_type, cfg.norm_eps)
     if kind == "moe":
         y = moe_block(h2, lp["moe"], cfg.moe, cfg.act, cfg.gated_mlp)
     else:
         y = mlp(h2, lp["mlp"], cfg.act, cfg.gated_mlp)
-    return x + y.to(x.dtype), ys
+    return hint(x + y.to(x.dtype), "residual"), ys
 
 
 def _run_group(x, gparams, g: GroupSpec, cfg: ModelConfig, positions,
@@ -291,9 +312,8 @@ def _run_group(x, gparams, g: GroupSpec, cfg: ModelConfig, positions,
         x, ys = _block(x, layer_at(gparams, i), g.windows[i], cfg, g.kind,
                        positions, kernel, cache=c, pos=pos)
         if fill is not None and "k" in ys:
-            S = ys["k"].shape[1]
-            fill["k"][i, :, :S] = ys["k"]
-            fill["v"][i, :, :S] = ys["v"]
+            write_seq(fill["k"][i], ys["k"], 0)
+            write_seq(fill["v"][i], ys["v"], 0)
         states = fill if fill is not None else cache
         if states is not None and "ssm_state" in ys:
             states["conv_state"][i] = ys["conv_state"]
@@ -320,11 +340,13 @@ def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
     ``kernel=False``; the kernel route is for serving."""
     x = _embed_inputs(params, cfg, tokens, img_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = hint(x, "residual")
     for g in build_groups(cfg):
         x = _run_group(x, params[g.name], g, cfg, positions, kernel)
     x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
-    return unembed(x, _head(params, cfg), cfg.tie_embeddings,
-                   cfg.final_softcap)
+    logits = unembed(x, _head(params, cfg), cfg.tie_embeddings,
+                     cfg.final_softcap)
+    return hint(logits, "logits")
 
 
 def loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
@@ -336,9 +358,7 @@ def loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
     labels = batch["labels"]
     if cfg.vlm_stub and logits.shape[1] != labels.shape[1]:
         logits = logits[:, -labels.shape[1]:]      # drop image positions
-    lp = torch.log_softmax(logits.to(F32), dim=-1)
-    ll = torch.gather(lp, -1, labels[..., None].long())[..., 0]
-    return -ll.mean()
+    return -token_log_likelihood(logits, labels).mean()
 
 
 # ---------------------------------------------------------------- serving ---
@@ -377,7 +397,12 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: Optional[int] = None,
     B, S, _ = x.shape
     max_len = max_len or S
     positions = torch.arange(S, device=x.device)[None, :]
-    cache = init_cache(cfg, B, max_len, dtype=x.dtype, device=x.device)
+    x = hint(x, "residual")
+    # (a DTensor forward gets a DTensor cache: made on "meta", then laid
+    # out by the recipe)
+    cache = shard_cache(init_cache(
+        cfg, B, max_len, dtype=x.dtype,
+        device="meta" if is_dtensor(x) else x.device), x)
     cache["pos"] = S
     for g in build_groups(cfg):
         x = _run_group(x, params[g.name], g, cfg, positions, kernel,
@@ -385,7 +410,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: Optional[int] = None,
     x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
     logits = unembed(x[:, -1:], _head(params, cfg), cfg.tie_embeddings,
                      cfg.final_softcap)
-    return logits, cache
+    return hint(logits, "logits"), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache: Dict, tokens,
@@ -409,4 +434,4 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens,
     x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
     logits = unembed(x, _head(params, cfg), cfg.tie_embeddings,
                      cfg.final_softcap)
-    return logits, cache
+    return hint(logits, "logits"), cache

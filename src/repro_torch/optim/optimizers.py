@@ -15,8 +15,11 @@ the update, and bias correction is in fp32.  ``update(grads, state,
 params) -> (params, state, grad_norm)`` is functional: it returns new
 trees (the new params require grad where the old ones did) and leaves
 its arguments as they were.  ``torch.optim`` is not used: its Adafactor
-is another algorithm.  The reference's ``state_specs`` (a
-``PartitionSpec`` tree) comes with the sharding slice.
+is another algorithm.  ``state_specs(params, pspecs)`` gives the
+state's ``PartitionSpec`` tree from the params' (``distributed.
+sharding.param_specs``), as the reference's does: AdamW's ``m`` and
+``v`` shard like their params; Adafactor's ``vr`` drops the spec's last
+entry and ``vc`` its second-to-last.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Callable
 
 import torch
 
+from ..distributed.sharding import PartitionSpec as P
 from ..tree import leaves, tree_map
 
 F32 = torch.float32
@@ -33,8 +37,9 @@ F32 = torch.float32
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    init: Callable       # params -> state
-    update: Callable     # (grads, state, params) -> (params, state, gnorm)
+    init: Callable         # params -> state
+    update: Callable       # (grads, state, params) -> (params, state, gnorm)
+    state_specs: Callable  # (params, param_specs tree) -> state specs tree
 
 
 def cosine_schedule(base_lr: float, warmup: int = 200,
@@ -106,7 +111,10 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
             tree_map(upd, grads, state["m"], state["v"], params), 3)
         return new_p, {"step": step, "m": new_m, "v": new_v}, gnorm
 
-    return Optimizer(init, update)
+    def state_specs(params, pspecs):
+        return {"step": P(), "m": pspecs, "v": pspecs}
+
+    return Optimizer(init, update, state_specs)
 
 
 def adafactor(lr=1e-3, decay=0.8, eps=1e-30, weight_decay=0.0,
@@ -157,7 +165,17 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, weight_decay=0.0,
         new_p, new_v = _split(tree_map(upd, grads, state["v"], params), 2)
         return new_p, {"step": step, "v": new_v}, gnorm
 
-    return Optimizer(init, update)
+    def state_specs(params, pspecs):
+        def st(p, spec):
+            parts = list(spec) + [None] * (len(p.shape) - len(spec))
+            if len(p.shape) >= 2:
+                # vr drops the last dim's axis; vc the second-to-last's.
+                return {"vr": P(*parts[:-1]),
+                        "vc": P(*(parts[:-2] + parts[-1:]))}
+            return {"v": P(*parts)}
+        return {"step": P(), "v": tree_map(st, params, pspecs)}
+
+    return Optimizer(init, update, state_specs)
 
 
 def make_optimizer(name: str, lr: float = 3e-4,

@@ -517,18 +517,24 @@ class ShardedPagePool:
     def stacked_slab(self, mesh=None) -> Optional[torch.Tensor]:
         """The per-shard slabs' resident rows stacked to ``[num_shards,
         capacity, blocks_per_page, bh, bw]`` on the primary device (the
-        staging tails are not part of the pool); None in host mode.  A
-        serving ``mesh`` (the stack laid out across devices) waits for the
-        port's distribution slice."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "stacked_slab(mesh=...): laying the stacked slab out over a "
-                "device mesh is ROADMAP queue 1 item 7, the port's "
-                "distribution slice")
+        staging tails are not part of the pool); None in host mode.  With
+        a serving ``mesh`` (``launch.mesh.make_shard_mesh``) the stack is
+        a DTensor on it, laid out by ``slab_spec`` sanitized for its
+        shape (the shard dim over the ``shard`` axis where it divides,
+        else replicated): the reference's ``NamedSharding`` view.  A
+        single controller's mesh has one device, so the local tensor is
+        the whole stack."""
         if any(p.slab is None for p in self.pools):
             return None
-        return torch.stack([p.slab[:p.capacity].to(self.device)
-                            for p in self.pools])
+        stacked = torch.stack([p.slab[:p.capacity].to(self.device)
+                               for p in self.pools])
+        if mesh is None:
+            return stacked
+        from torch.distributed.tensor import distribute_tensor
+
+        from ..distributed.sharding import slab_sharding
+        return distribute_tensor(stacked.to(mesh.device_type), mesh,
+                                 slab_sharding(mesh, tuple(stacked.shape)))
 
     def check_invariants(self) -> None:
         """Per-shard residency invariant (slab == pool members, slots

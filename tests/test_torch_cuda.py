@@ -882,3 +882,91 @@ def test_kernel_wrappers_refuse_inputs_that_need_grad_on_the_card(
     with pytest.raises(RuntimeError, match="requires grad"):
         calls[name]()
     assert ops.LAUNCHES == before
+
+
+# ---------------------------------------------------------- distribution --
+@pytest.fixture
+def one_rank_nccl(cuda_device):
+    """A one-rank NCCL default group for the test, torn down after."""
+    import torch.distributed as dist
+    owned = not dist.is_initialized()
+    if owned:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    yield cuda_device
+    if owned:
+        dist.destroy_process_group()
+
+
+def test_mm_dtype_on_a_one_rank_cuda_mesh(one_rank_nccl):
+    """``torch.mm(a, b, out_dtype=F32)`` of bf16 DTensors on a (1, 1)
+    ``("data", "model")`` cuda mesh (the strategy the port registers):
+    bit-equal to the product without a mesh, also through ``dot``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed.sharding import P, placements
+    from repro_torch.models.layers import dot
+    dev = one_rank_nccl
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(96, 256, device=dev, generator=g).to(torch.bfloat16)
+    b = torch.randn(256, 80, device=dev, generator=g).to(torch.bfloat16)
+    A = distribute_tensor(a, mesh, placements(P("data", None), mesh))
+    B = distribute_tensor(b, mesh, placements(P("data", "model"), mesh))
+    want = torch.mm(a, b, out_dtype=torch.float32)
+    got = torch.mm(A, B, out_dtype=torch.float32).full_tensor()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    got = dot(A.reshape(4, 24, 256), B).full_tensor()
+    assert torch.equal(got.reshape(96, 80), want)
+
+
+def test_pipeline_apply_on_the_card(cuda_device):
+    """``pipeline_apply`` on ``cuda:0``: a reduced bf16 deepseek's layers
+    in 2 stages through the ``flash_attention`` kernel, 3 microbatches:
+    bit-equal to the unpipelined forward of each microbatch, one launch a
+    layer a microbatch."""
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(reduced(get_config("deepseek-7b")),
+                              dtype="bfloat16", head_dim=64)
+    L = cfg.num_layers
+    params = convert.train_params(transformer.init_params(cfg, 3), cfg,
+                                  cuda_device)
+    (g,) = transformer.build_groups(cfg)
+    half = transformer.GroupSpec(g.name, g.kind, L // 2, g.windows[:L // 2])
+    pos = torch.arange(64, device=cuda_device)[None, :]
+    with torch.no_grad():
+        blocks = tree_map(lambda t: t.detach(), params[g.name])
+        x = torch.randn(3, 1, 64, cfg.d_model, device=cuda_device).to(
+            torch.bfloat16)
+        stages = [tree_map(lambda a, s=s: a[s * (L // 2):(s + 1) * (L // 2)],
+                           blocks) for s in range(2)]
+        n0 = ops.LAUNCHES["flash_attention"]
+        out = pipeline_apply(
+            lambda p, h: transformer._run_group(h, p, half, cfg, pos, True),
+            stages, x)
+        assert ops.LAUNCHES["flash_attention"] - n0 == L * 3
+        ref = torch.stack([transformer._run_group(x[m], blocks, g, cfg, pos,
+                                                  True) for m in range(3)])
+    assert out.device.type == "cuda" and torch.equal(out, ref)
+
+
+def test_stacked_slab_on_the_card_mesh(one_rank_nccl):
+    """``stacked_slab(make_shard_mesh(2))`` in cuda mode: a DTensor on the
+    one-rank NCCL serving mesh, its local tensor the per-shard stack."""
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.launch.mesh import make_shard_mesh
+    store, heads, batches = _sharded_scenario()
+    srv = _sharded_server(store, "cuda", "sharers")
+    engine = EmbeddingServingEngine(srv, heads, overlap=True,
+                                    scheduler="fifo")
+    for model, docs in batches[:4]:
+        engine.submit(model, docs)
+        engine.run(max_batches=1)
+    mesh = make_shard_mesh(2)
+    assert mesh.device_type == "cuda" and mesh.size() == 1
+    slab = srv.sharded.stacked_slab(mesh)
+    assert isinstance(slab, DTensor) and tuple(slab.placements) == (Shard(0),)
+    assert slab.to_local().device.type == "cuda"
+    assert torch.equal(slab.to_local(), srv.sharded.stacked_slab())

@@ -70,7 +70,8 @@ def test_port_and_smoke_import_no_jax_and_no_reference():
             "repro_torch.serving.frontend, "
             "repro_torch.serving.shard_pool, repro_torch.launch.mesh, "
             "repro_torch.models, repro_torch.configs, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.dryrun, "
+            "repro_torch.distributed.pipeline, repro_torch.data.specs; "
             "leaked = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(leaked); sys.exit(1 if leaked else 0)")

@@ -674,7 +674,7 @@ def test_update_between_submit_and_run_cannot_fault_stale_pages(jax_db):
 def test_stacked_slab_equals_the_reference(jax_db):
     """``stacked_slab()`` is the shards' resident rows, [S, cap, l, bh,
     bw], equal to the reference's (Pallas mode) bit for bit; None in host
-    mode; a mesh waits for the distribution slice."""
+    mode (the mesh view: the next test)."""
     jstore, store = _open_both(jax_db(1024, 4))
     srv = ShardedWeightServer(store, 4, storage=StorageModel("dram"),
                               shards=2, placement="sharers",
@@ -694,11 +694,43 @@ def test_stacked_slab_equals_the_reference(jax_db):
         for pid, slot in dev.slot_of.items():
             np.testing.assert_array_equal(slab[s, slot].numpy(),
                                           store.page_array(pid))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        srv.sharded.stacked_slab(mesh=object())
     host = ShardedWeightServer(store, 4, storage=StorageModel("dram"),
                                shards=2, kernel_mode="host")
     assert host.sharded.stacked_slab() is None
+
+
+def test_stacked_slab_lowers_with_named_sharding(jax_db):
+    """Port of the reference's mesh view: the per-shard slabs stack to
+    [S, cap, l, bh, bw] and lay out over the serving mesh's shard axis
+    (``slab_spec``, sanitized) as a DTensor -- on the CPU a one-rank gloo
+    mesh, whose local tensor is the whole stack, bit-equal to the
+    reference's slab; the process group is torn down after."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch.mesh import make_shard_mesh
+    jstore, store = _open_both(jax_db(1024, 4))
+    srv = ShardedWeightServer(store, 4, storage=StorageModel("dram"),
+                              shards=2, placement="sharers",
+                              kernel_mode="torch")
+    jsrv = JSharded(jstore, 4, storage=JStorage("dram"), shards=2,
+                    placement="sharers", kernel_mode="pallas")
+    pl = srv.sharded.placement()
+    for s in range(2):
+        for pid in sorted(pl.owned_sets[s])[:2]:
+            srv.sharded.buffer_pools[s].access("word2vec-v0", pid)
+            jsrv.sharded.buffer_pools[s].access("word2vec-v0", pid)
+    try:
+        mesh = make_shard_mesh(2, kernel_mode="torch")
+        assert mesh.mesh_dim_names == ("shard",) and mesh.size() == 1
+        slab = srv.sharded.stacked_slab(mesh)
+        assert isinstance(slab, DTensor)
+        assert tuple(slab.shape[:2]) == (2, 4)
+        assert tuple(slab.placements) == (Shard(0),)
+        np.testing.assert_array_equal(
+            slab.to_local().numpy(), np.asarray(jsrv.sharded.stacked_slab()))
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------------------- the CPU-only rule --
