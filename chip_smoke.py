@@ -77,6 +77,19 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      ``python -m repro_torch.launch.serve --shards 2 --placement hash
      --models 4`` with the embedding and the LM engine, each exiting 0
      with ``borrows=`` > 0;
+  5d. sanitize — the port's ``PoolSanitizer`` (strict, attached by
+     instance to the servers' pools alone, the buffer pools' callbacks
+     pointed at the wrapped methods) on a cuda-mode ``WeightServer`` of
+     the same store and a 2-shard ``hash`` ``ShardedWeightServer`` at
+     the ``[shards]`` phase's capacity: 8 batches each through the
+     embedding engine (``dedup_embedding``) and ``device_matmul`` on the
+     FFNN store (``dedup_matmul``): 0 violations, logits and products
+     bit-equal to the same batches on uninstrumented servers, events
+     and per-batch wall time with and without printed; then three
+     faults injected on cuda-mode ``DevicePagePool``s (a stale remap
+     into ``gather_rows``, a load that skips the generation bump, a
+     cross-pool map into ``virtual_matmul``), each of which must raise
+     ``PoolSanitizerError`` before its kernel launches;
   6. LM      — deepseek-7b at full width (d_model 4096, 32 heads of 128,
      d_ff 11008; depth cut 30 -> 2, vocabulary 102,400 -> 32,768), two
      variants that differ in layer 1's feed-forward weights, registered
@@ -176,7 +189,7 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      local tensor bit-equal to the per-shard stack and a
      ``dedup_embedding`` gather through it equal to each shard's own;
   8. a ``{"kernels": [...]}`` line with every ported kernel's launches
-     on its path (phases 2b, 4, 5, 5b, 5c, 6, 6a, 7 and 7c), its times
+     on its path (phases 2b, 4, 5, 5b, 5c, 5d, 6, 6a, 7 and 7c), its times
      and its bound;
   9. last line: ``{"ok": true, "device": {...}}``.
 
@@ -298,6 +311,8 @@ FT_STEPS, FT_BATCH, FT_SEQ = 3, 2, 256
 DEVICE = "cuda"
 # the CLI's traffic run on the card, killed and resumed
 CLI_TRAFFIC = "rate=400,requests=40,slo_ms=200,max_batch=4"
+# the PoolSanitizer's phase: batches served on each instrumented server
+SANITIZE_BATCHES = 8
 # the sharded slab on the word2vec store: the 40 batches in order, overlap
 # on, prefetch off (it reads the host clock), at 2 and 4 shards under both
 # placements; the 2-shard sharers run again with shard 0 failed at batch 13
@@ -2389,6 +2404,250 @@ def shards_phase(torch, ops, ref, url, heads, batches, capacity, fstore,
     pdb.close()
     log(f"[shards] launches={launches} seconds="
         f"{time.perf_counter() - t_phase:.1f}")
+    return launches, caps[(2, "hash")]
+
+
+# ------------------------------------------------------------- sanitizer --
+def instrument(san, srv):
+    """Attach ``san`` to the server's pools by instance.  A server binds
+    its buffer pools' load / evict callbacks to its device pools' methods
+    when it is built, so those are pointed at the wrapped methods too
+    (``enable()`` instruments the pools before that binding)."""
+    if hasattr(srv, "sharded"):
+        san.attach_sharded_pool(srv.sharded)
+        for bp, pool in zip(srv.sharded.buffer_pools, srv.sharded.pools):
+            bp.on_evict = pool.evict
+        return
+    pool, bp = srv.device_pool, srv.pool
+    san.attach_device_pool(pool)
+    san.attach_buffer_pool(bp)
+    bp.on_load, bp.on_evict = pool.load, pool.evict
+    if bp.on_load_group is not None:
+        bp.on_load_group = pool.load_group
+
+
+def serve_with_sanitizer(torch, ops, store, heads, batches, fstore, make,
+                         san):
+    """SANITIZE_BATCHES batches on the servers ``make()`` builds (the
+    word2vec store's, the FFNN store's), instrumented by ``san`` unless
+    None: each batch served by the embedding engine and one
+    ``device_matmul`` on the FFNN store.  Returns (logits, products,
+    per-batch wall seconds, launches)."""
+    import numpy as np
+    from repro_torch.serving.engine import EmbeddingServingEngine
+    srv, fsrv = make(store), make(fstore)
+    if san is not None:
+        instrument(san, srv)
+        instrument(san, fsrv)
+    engine = EmbeddingServingEngine(srv, heads, scheduler="fifo",
+                                    overlap=True)
+    rng = np.random.default_rng(SEED + 2)
+    xs = rng.standard_normal((SANITIZE_BATCHES, 64, 2048)).astype(np.float32)
+    logits, ys, walls = [], [], []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for i, (model, docs) in enumerate(batches[:SANITIZE_BATCHES]):
+        fmodel = f"ffnn-{i % 3}"
+        t0 = time.perf_counter()
+        engine.submit(model, docs)
+        engine.run(max_batches=1)
+        fsrv.access_pages(fmodel, fstore.model_pages(fmodel))
+        y = fsrv.device_matmul(fmodel, "W1", xs[i])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        logits.append(engine.last_logits.copy())
+        ys.append(y.cpu().numpy())
+    launches = dict(ops.LAUNCHES)
+    st = engine.stats
+    if st.device_batches != SANITIZE_BATCHES or st.dense_fallbacks:
+        raise AssertionError(f"[sanitize] device_batches={st.device_batches}"
+                             f" dense_fallbacks={st.dense_fallbacks}")
+    return logits, ys, walls, launches
+
+
+def counting_sanitizer():
+    """A strict PoolSanitizer that also counts every event it records, by
+    operation (its own history keeps the last 4096)."""
+    from repro_torch.analysis.sanitizer import PoolSanitizer
+
+    class Counting(PoolSanitizer):
+        def __init__(self):
+            super().__init__(strict=True)
+            self.emitted = 0
+            self.by_op = {}
+
+        def _emit(self, op, *a):
+            self.emitted += 1
+            self.by_op[op] = self.by_op.get(op, 0) + 1
+            super()._emit(op, *a)
+    return Counting()
+
+
+def injected_faults(torch, ops, store, fstore) -> str:
+    """Three violations on cuda-mode DevicePagePools, each of which must
+    raise PoolSanitizerError before its kernel launches (the launch
+    counts stay 0); the clean call after each launches its kernel once."""
+    import numpy as np
+    from repro_torch.analysis.sanitizer import (PoolSanitizer,
+                                                PoolSanitizerError)
+    from repro_torch.serving.device_pool import DevicePagePool
+    rows = np.arange(64)
+
+    def expect(what, kernel, fn, match):
+        ops.reset_launches()
+        try:
+            fn()
+        except PoolSanitizerError as e:
+            if match not in str(e):
+                raise AssertionError(f"[sanitize] {what}: raised {e!r}, "
+                                     f"wanted {match!r}") from e
+        else:
+            raise AssertionError(f"[sanitize] {what}: no PoolSanitizerError")
+        torch.cuda.synchronize()
+        if ops.LAUNCHES[kernel]:
+            raise AssertionError(f"[sanitize] {what}: {kernel} launched "
+                                 f"{ops.LAUNCHES[kernel]} times")
+        return f"{what}: raised before {kernel} (launches 0)"
+
+    def launches_once(kernel, fn):
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        if ops.LAUNCHES[kernel] != 1:
+            raise AssertionError(f"[sanitize] the clean {kernel} call "
+                                 f"launched {ops.LAUNCHES[kernel]} times")
+        return out
+
+    lines = []
+    # 1. a remap minted before a load feeds gather_rows after it
+    vt = store.virtual_tensor("word2vec-v0", "embedding")
+    pids = list(dict.fromkeys(int(p) for p in vt.page_ids))
+    pool = DevicePagePool(store, len(pids), kernel_mode="cuda")
+    pool.load_group(pids[:-1])
+    san = PoolSanitizer(strict=True)
+    san.attach_device_pool(pool)
+    stale = pool.remap(vt, strict=False)
+    pool.load(pids[-1])
+    lines.append(expect("stale-remap", "dedup_embedding",
+                        lambda: pool.gather_rows(stale, vt.grid, rows),
+                        "stale-remap"))
+    launches_once("dedup_embedding",
+                  lambda: pool.gather_rows(pool.remap(vt), vt.grid, rows))
+
+    # 2. a load that admits a page without bumping the generation
+    pool = DevicePagePool(store, len(pids), kernel_mode="cuda")
+    pool.load_group(pids[:-1])
+
+    def broken_load(pid):
+        slot = pool._free.pop()
+        pool.slot_of[pid] = slot
+        pool._page_to_slot[pid] = slot
+
+    pool.load = broken_load
+    san = PoolSanitizer(strict=True)
+    san.attach_device_pool(pool)
+
+    def load_then_gather():
+        pool.load(pids[-1])
+        pool.gather_rows(pool.remap(vt), vt.grid, rows)
+    lines.append(expect("missed-bump", "dedup_embedding", load_then_gather,
+                        "missed generation bump"))
+
+    # 3. pool A's map into pool B's virtual_matmul
+    fvt = fstore.virtual_tensor("ffnn-1", "W1")
+    fpids = list(dict.fromkeys(int(p) for p in fvt.page_ids))
+    pool_a = DevicePagePool(fstore, len(fpids), kernel_mode="cuda")
+    pool_b = DevicePagePool(fstore, len(fpids), kernel_mode="cuda")
+    san = PoolSanitizer(strict=True)
+    for p in (pool_a, pool_b):
+        san.attach_device_pool(p)
+        p.load_group(fpids)
+    x = np.random.default_rng(SEED + 3).standard_normal(
+        (64, 2048)).astype(np.float32)
+    map_a = pool_a.remap(fvt)
+    lines.append(expect("cross-pool", "dedup_matmul",
+                        lambda: pool_b.virtual_matmul(map_a, fvt.grid, x),
+                        "different pool"))
+    ya = launches_once("dedup_matmul",
+                       lambda: pool_a.virtual_matmul(map_a, fvt.grid, x))
+    yb = launches_once("dedup_matmul", lambda: pool_b.virtual_matmul(
+        pool_b.remap(fvt), fvt.grid, x))
+    if not torch.equal(ya, yb):
+        raise AssertionError("[sanitize] the two pools' products differ")
+    return "; ".join(lines)
+
+
+def sanitize_phase(torch, ops, store, heads, batches, capacity, fstore,
+                   shard_cap):
+    """[sanitize]: the strict PoolSanitizer on the single slab and on 2
+    hash shards (cuda mode), against the same batches uninstrumented;
+    then the injected faults.  Returns the instrumented runs' launches."""
+    import numpy as np
+    from repro_torch.launch.mesh import shard_devices
+    from repro_torch.serving import ShardedWeightServer
+    from repro_torch.serving.engine import StorageModel, WeightServer
+    t_phase = time.perf_counter()
+
+    def single(st):
+        cap = capacity if st is store else st.num_pages()
+        return WeightServer(st, cap, storage=StorageModel("dram"),
+                            backend="device", kernel_mode="cuda")
+
+    def sharded(st):
+        cap = shard_cap if st is store else st.num_pages()
+        return ShardedWeightServer(st, cap, storage=StorageModel("dram"),
+                                   shards=2, placement="hash",
+                                   kernel_mode="cuda",
+                                   devices=shard_devices(2, "cuda"))
+
+    launches = {"dedup_embedding": 0, "dedup_matmul": 0}
+    for name, make in (("single", single), ("2xhash", sharded)):
+        # in turns: uninstrumented, instrumented, instrumented,
+        # uninstrumented; each run on servers of its own
+        sans = [None, counting_sanitizer(), counting_sanitizer(), None]
+        runs = [serve_with_sanitizer(torch, ops, store, heads, batches,
+                                     fstore, make, san) for san in sans]
+        plain, got = runs[0], runs[1]
+        for run in runs[1:3]:
+            for k in launches:
+                launches[k] += run[3][k]
+        equal = all(np.array_equal(a, b)
+                    for run in runs[1:]
+                    for a, b in zip(run[0] + run[1], plain[0] + plain[1]))
+        walls = {kind: [w for run in pair for w in run[2]]
+                 for kind, pair in (("plain", (runs[0], runs[3])),
+                                    ("sanitized", runs[1:3]))}
+        san = sans[1]
+        log(f"[sanitize] {name}: batches={SANITIZE_BATCHES} "
+            f"events={san.emitted} by_op={dict(sorted(san.by_op.items()))} "
+            f"violations={len(san.violations) + len(sans[2].violations)} "
+            f"batch_ms_median={np.median(walls['sanitized']) * 1e3:.3f} "
+            f"(uninstrumented {np.median(walls['plain']) * 1e3:.3f}) "
+            f"batch_ms_mean={np.mean(walls['sanitized']) * 1e3:.3f} "
+            f"(uninstrumented {np.mean(walls['plain']) * 1e3:.3f}) "
+            f"over 2 x {SANITIZE_BATCHES} batches each, launches={got[3]} "
+            f"bit_equal={equal}")
+        if san.violations or sans[2].violations or not equal:
+            raise AssertionError(f"[sanitize] {name}: {san.report()}\n"
+                                 f"{sans[2].report()}")
+        # what each run must have had checked: the single slab's kernel
+        # reads (its maps come from remap, which tags them); the shards'
+        # loads and borrow staging (their maps reach into the staging
+        # tail, are minted per batch outside remap, and carry no tag)
+        need = {"load_group": 1, "evict": 1}
+        need.update({"gather_rows": SANITIZE_BATCHES,
+                     "virtual_matmul": SANITIZE_BATCHES}
+                    if name == "single" else {"stage_borrows": 1})
+        short = {op: san.by_op.get(op, 0) for op, n in need.items()
+                 if san.by_op.get(op, 0) < n}
+        if short or got[3]["dedup_matmul"] != SANITIZE_BATCHES \
+                or got[3]["dedup_embedding"] < SANITIZE_BATCHES:
+            raise AssertionError(f"[sanitize] {name}: too few checked "
+                                 f"events {short} (wanted {need}), "
+                                 f"launches {got[3]}")
+    log(f"[sanitize] injected on cuda pools: "
+        f"{injected_faults(torch, ops, store, fstore)}")
+    log(f"[sanitize] seconds={time.perf_counter() - t_phase:.1f}")
     return launches
 
 
@@ -3131,9 +3390,14 @@ def main() -> int:
     log(f"[traffic] seconds={time.perf_counter() - t0:.1f}")
 
     # ------------------------------------------ 5c. the sharded slab --
-    shard_launches = shards_phase(torch, ops, ref, url, heads, batches,
-                                  capacity, fstore, y)
+    shard_launches, shard_cap = shards_phase(torch, ops, ref, url, heads,
+                                             batches, capacity, fstore, y)
     for name, n in shard_launches.items():
+        launches[name] += n
+
+    # ----------------------------------- 5d. the PoolSanitizer, armed --
+    for name, n in sanitize_phase(torch, ops, store, heads, batches,
+                                  capacity, fstore, shard_cap).items():
         launches[name] += n
 
     # ----------------------------------------------------------- 6. LM --

@@ -43,13 +43,20 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def route(xt, p, moe: MoEConfig):
+def route(xt, p, moe: MoEConfig, num_tokens=None, offsets=None):
     """(gate values [T, K] renormalised, slots [T, K], keeps [T, K], C):
     each token's k experts and its slot ``e*C + position`` in the
-    dispatch buffer, ``E*C`` where the expert is full."""
+    dispatch buffer, ``E*C`` where the expert is full.
+
+    A shard of a batch routes as part of the whole batch given
+    ``num_tokens``, the batch's token count, which sets C (T by default),
+    and ``offsets``, a function from this shard's counts by choice and
+    expert [K, E] to the position of each choice's first token in each
+    expert [K, E] (by default the counts of the earlier choices; see
+    :func:`batch_offsets`)."""
     T = xt.shape[0]
     E, K = moe.num_experts, moe.top_k
-    C = _capacity(moe, T)
+    C = _capacity(moe, T if num_tokens is None else num_tokens)
     router_logits = dot(xt, p["router"].to(xt.dtype))               # [T, E]
     probs = torch.softmax(router_logits.to(F32), dim=-1)
     gate_vals, gate_idx = top_k(probs, K)                           # [T, K]
@@ -57,20 +64,44 @@ def route(xt, p, moe: MoEConfig):
         gate_vals.sum(-1, keepdim=True), min=1e-9)
 
     # (expert, slot) assignment with running per-expert counts
-    counts = torch.zeros((E,), dtype=torch.int64, device=xt.device)
+    onehots = [F.one_hot(gate_idx[:, j], E) for j in range(K)]      # [T, E]
+    counts = torch.stack([o.sum(dim=0) for o in onehots])           # [K, E]
+    start = (torch.cumsum(counts, dim=0) - counts if offsets is None
+             else offsets(counts))
     slot_list, keep_list = [], []
     for j in range(K):
         e = gate_idx[:, j]                                          # [T]
-        onehot = F.one_hot(e, E)                                    # [T, E]
-        pos = torch.cumsum(onehot, dim=0) - 1 + counts[None, :]     # [T, E]
+        pos = torch.cumsum(onehots[j], dim=0) - 1 + start[j][None, :]
         slot_in_e = torch.gather(pos, 1, e[:, None])[:, 0]
-        counts = counts + onehot.sum(dim=0)
         keep = slot_in_e < C
         slot_list.append(torch.where(keep, e * C + slot_in_e,
                                      torch.full_like(e, E * C)))    # E*C=drop
         keep_list.append(keep)
     return (gate_vals, torch.stack(slot_list, dim=1),
             torch.stack(keep_list, dim=1), C)
+
+
+def batch_offsets(mesh, tokens):
+    """:func:`route`'s ``offsets`` for this rank's shard of a batch
+    chunked over the mesh dims ``tokens`` (in mesh order, as
+    :func:`shard_placements` lays it out): choice j's first position in
+    expert e is the whole batch's count of the choices before j in e plus
+    the lower ranks' count of choice j in e, the reference's running
+    counts over the whole batch.  One all-gather of [K, E] counts."""
+    bw = shard_placements([0 if m in tokens else None
+                           for m in range(mesh.ndim)])
+    coord = mesh.get_coordinate()
+    n, rank = 1, 0
+    for m in tokens:
+        n *= mesh.shape[m]
+        rank = rank * mesh.shape[m] + coord[m]
+
+    def offsets(counts):
+        every = from_local(counts[None], mesh, bw,
+                           (n,) + tuple(counts.shape)).full_tensor()
+        total = every.sum(dim=0)                                    # [K, E]
+        return torch.cumsum(total, dim=0) - total + every[:rank].sum(dim=0)
+    return offsets
 
 
 def _edot(a, b):
@@ -90,14 +121,15 @@ def moe_block(x, p, moe: MoEConfig, act: str, gated: bool):
 
 
 def moe_experts(xt, p, moe: MoEConfig, act: str, gated: bool,
-                experts=None):
+                experts=None, num_tokens=None, offsets=None):
     """The routed experts' fp32 output [T, D] for the tokens xt [T, D].
     ``experts`` = (first, count): only those experts run (``p``'s expert
     weights hold just them; routing still sees every expert), and the
-    result is their share of the sum, which the caller reduces."""
+    result is their share of the sum, which the caller reduces.
+    ``num_tokens`` and ``offsets`` go to :func:`route`."""
     T, D = xt.shape
     E, K = moe.num_experts, moe.top_k
-    gate_vals, slots, keeps, C = route(xt, p, moe)
+    gate_vals, slots, keeps, C = route(xt, p, moe, num_tokens, offsets)
     if experts is not None:            # other experts' slots -> drop row
         e0, E = experts
         mine = (slots >= e0 * C) & (slots < (e0 + E) * C)
@@ -144,9 +176,14 @@ def _moe_dtensor(x, p, moe: MoEConfig, act: str, gated: bool):
     of an expert mesh dim holds the same tokens), the experts stay
     sharded over their axis (their d-dims gathered), each rank routes its
     tokens over all experts and runs :func:`moe_experts` on its own, and
-    the shares are all-reduced over the expert mesh dims.  Capacity is
-    per batch shard (the tokens a rank routes), as in GShard's groups: a
-    token the whole batch's capacity would keep may be dropped here."""
+    the shares are all-reduced over the expert mesh dims.  Capacity and
+    positions are the whole batch's, as in the reference: C comes from
+    the batch's token count, and each rank's positions in an expert are
+    offset by the counts of the tokens before its own
+    (:func:`batch_offsets`), so every rank keeps and drops the tokens
+    the plain block over the whole batch does.  Each rank's dispatch
+    buffer is [E_local, C, D] at that C; the ranks' kept slots are
+    disjoint, and a rank's buffer holds only its own tokens."""
     mesh = x.device_mesh
     B, S, D = x.shape
     tokens = [m for m, d in enumerate(parallel_dims(x, {0: (B,)}))
@@ -169,7 +206,8 @@ def _moe_dtensor(x, p, moe: MoEConfig, act: str, gated: bool):
           for k, v in p.items()}
     e0, El = shard_range(p["ew1"], 0, ew)
     yt = moe_experts(all_reduce_grad(xt, mesh, ep), pl, moe, act, gated,
-                     experts=(e0, El))
+                     experts=(e0, El), num_tokens=B * S,
+                     offsets=batch_offsets(mesh, tokens))
     yt = all_reduce(yt, mesh, ep).to(x.dtype)
     yt = _dense_residual(yt, xt, pl, moe, act, gated)
     return from_local(yt.reshape(xl.shape), mesh, bw, x.shape)

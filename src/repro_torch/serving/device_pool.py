@@ -322,7 +322,7 @@ class DevicePagePool:
         bh, bw = self.block_shape
         gh, gw = grid.grid
         width = grid.shape2d[1]
-        rows = np.asarray(rows)
+        rows = np.asarray(rows)      # repro: allow-host (index array)
         n = len(rows)
         bmap2d = dev_map.reshape(gh, gw)
         # Partial remaps carry -1 holes; a negative index would read the
@@ -372,6 +372,7 @@ class DevicePagePool:
         if mode == "host":
             slab = self.host_slab
             blocks = slab.reshape(slab.shape[0] * l, bh, bw)
+            # repro: allow-host — host-mode kernel: the mirror IS the tier
             x = np.asarray(x, dtype=np.float32)
             xp = x
             if x.shape[-1] != gh * bh:

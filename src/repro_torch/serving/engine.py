@@ -798,6 +798,7 @@ class EmbeddingServingEngine(_PrefetchingEngine):
                     else:
                         # batch boundary: the logits leave the device here,
                         # and .cpu() waits for it inside the compute timer
+                        # repro: allow-host (batch boundary: logits leave)
                         logits = _tok_logits(
                             emb, self._head_dev(model, emb)
                         ).to(torch.float32).cpu().numpy()
@@ -978,6 +979,7 @@ class LMServingEngine(_PrefetchingEngine):
         params, api = self._params, self.apis[model]
         dev = params["embed"].device
         t0 = time.perf_counter()
+        # repro: allow-host (prompts are the request's host array)
         tokens = torch.as_tensor(np.asarray(prompts), device=dev)
         logits, cache = api.prefill(params, {"tokens": tokens},
                                     prompts.shape[1] + steps)

@@ -333,6 +333,9 @@ class ShardedPagePool:
             else src.slab.index_select(0, src._put(slots))
         self.pools[shard].write_stage([st[p] for p in pids], rows)
 
+    # The borrow fetch is charged by the caller (ShardedWeightServer.
+    # _borrow puts the seconds on the storage/interconnect channels);
+    # this method owns only the bytes.  # repro: allow-uncharged
     def stage_borrows(self, shard: int, pages, model
                       ) -> Optional[Tuple[Dict[int, int], int, int, int]]:
         """Stage ``pages`` (owned elsewhere) into ``shard``'s staging tail.
@@ -426,6 +429,8 @@ class ShardedPagePool:
         self.borrow_coalesced += len(reused)
         return dict(st), hits, faults, len(reused)
 
+    # stage_borrows counts these pages as owner faults, which its caller
+    # (ShardedWeightServer._borrow) charges.  # repro: allow-uncharged
     def _upload_from_store(self, shard: int, pids: List[int],
                            st: Dict[int, int]) -> None:
         """The store's bytes of ``pids`` into ``shard``'s staging tail, in

@@ -377,7 +377,7 @@ class TransferEngine:
             pg = self._full_cover(missing)
             overlapped = 0
             if pg is not None:
-                rows = np.asarray([pg.index[p] for p in missing],
+                rows = np.asarray([pg.index[p] for p in missing],  # repro: allow-host
                                   dtype=np.int64)
                 # the host rows are needed only where no device copy is
                 # in flight (host mode)
@@ -397,7 +397,7 @@ class TransferEngine:
             # fitted over storage seconds would double-charge misses
             # under charge_transfer.
             start = None if self._cuda() else self.start_timer()
-            slots = np.asarray([self.pool._free.pop() for _ in missing],
+            slots = np.asarray([self.pool._free.pop() for _ in missing],  # repro: allow-host
                                dtype=np.int64)
             # Exception safety: slots are popped, but residency maps are
             # not yet touched.  If the device leg fails, every popped slot

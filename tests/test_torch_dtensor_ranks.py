@@ -19,10 +19,11 @@ difference (every output and gradient, gathered), which must be within
   embedding, the vocab-parallel loss), its prefill under the prefill
   recipe and one decode step under the decode recipe (the cache's
   sequence over ``model``);
-* ``moe_block`` expert parallel: without drops equal to the plain block;
-  with drops equal to the plain block run on each batch shard, since
-  capacity is per batch shard there (the drop pattern differs from one
-  plain block over the whole batch);
+* ``moe_block`` expert parallel, equal to the plain block over the whole
+  batch: without drops, and with a router that overflows (capacity factor
+  0.5), where each rank's slots, gathered, equal the plain ``route``'s
+  exactly (the whole batch's capacity and positions), with the tokens
+  over ``data`` and over both mesh dims;
 * the data-parallel ``mamba_mixer`` and its states.
 
 The four processes run every case once (a module fixture); run as
@@ -259,8 +260,9 @@ def case_decode_mamba_model_decode_recipe(mesh):
     return _decode_model(mesh, "mamba2-1.3b")
 
 
-def _moe(mesh, capacity_factor, by_shard, dense_ff=0):
-    """Output and the gradients of x and every weight."""
+def _moe(mesh, capacity_factor, x_spec=("data",), dense_ff=0):
+    """Output and the gradients of x and every weight; where the router
+    overflows, the kept slots are checked too (:func:`_moe_slots`)."""
     import dataclasses
     from repro_torch.distributed.sharding import P, param_spec
     from repro_torch.models.moe import moe_block
@@ -281,15 +283,13 @@ def _moe(mesh, capacity_factor, by_shard, dense_ff=0):
     w = _randn(rng, 4, 6, D)
     px = {k: v.clone().requires_grad_() for k, v in p.items()}
     xx = x.clone().requires_grad_()
-    if by_shard:      # capacity per batch shard: the plain block a shard
-        want = torch.cat([moe_block(xx[i:i + 2], px, moe, "silu", True)
-                          for i in (0, 2)])
-    else:
-        want = moe_block(xx, px, moe, "silu", True)
+    want = moe_block(xx, px, moe, "silu", True)
     _backward(want, w, mesh)
     pd = {k: _place(v, param_spec(k, v.dim()), mesh).requires_grad_()
           for k, v in p.items()}
-    xd = _place(x, P("data", None, None), mesh).requires_grad_()
+    xd = _place(x, P(x_spec, None, None), mesh).requires_grad_()
+    if capacity_factor < 1:
+        _moe_slots(mesh, moe, x, p["router"], xd)
     got = moe_block(xd, pd, moe, "silu", True)
     _backward(got, w, mesh)
     return max(_err(got, want.detach()), _err(xd.grad, xx.grad),
@@ -297,16 +297,50 @@ def _moe(mesh, capacity_factor, by_shard, dense_ff=0):
                     {k: v.grad for k, v in px.items()}))
 
 
+def _moe_slots(mesh, moe, x, router, xd):
+    """Each rank routes its shard of ``xd`` as ``_moe_dtensor`` does (the
+    whole batch's token count, :func:`batch_offsets`); gathered, the
+    slots and keeps equal the plain ``route`` of the whole batch exactly,
+    and that route drops tokens."""
+    from repro_torch.distributed.sharding import (from_local, local,
+                                                  parallel_dims,
+                                                  shard_placements)
+    from repro_torch.models.moe import batch_offsets, route
+    B, S, D = x.shape
+    T, K = B * S, moe.top_k
+    tokens = [m for m, d in enumerate(parallel_dims(xd, {0: (B,)}))
+              if d == 0]
+    bw = shard_placements([0 if m in tokens else None
+                           for m in range(mesh.ndim)])
+    with torch.no_grad():
+        xl = local(xd.detach(), bw).reshape(-1, D)
+        _, slots, keeps, C = route(xl, {"router": router}, moe,
+                                   num_tokens=T,
+                                   offsets=batch_offsets(mesh, tokens))
+        _, want_slots, want_keeps, want_C = route(
+            x.reshape(T, D), {"router": router}, moe)
+        got_slots = from_local(slots, mesh, bw, (T, K)).full_tensor()
+        got_keeps = from_local(keeps, mesh, bw, (T, K)).full_tensor()
+    assert C == want_C, (C, want_C)
+    assert not bool(want_keeps.all()), "the router must overflow"
+    assert torch.equal(got_keeps, want_keeps)
+    assert torch.equal(got_slots, want_slots)
+
+
 def case_moe_expert_parallel_no_drops(mesh):
-    return _moe(mesh, 8.0, False)
+    return _moe(mesh, 8.0)
 
 
-def case_moe_expert_parallel_drops_per_batch_shard(mesh):
-    return _moe(mesh, 0.5, True)
+def case_moe_expert_parallel_drops_whole_batch_capacity(mesh):
+    return _moe(mesh, 0.5)
+
+
+def case_moe_tokens_over_both_mesh_dims_drops(mesh):
+    return _moe(mesh, 0.5, x_spec=("data", "model"))
 
 
 def case_moe_expert_parallel_dense_ff(mesh):
-    return _moe(mesh, 8.0, False, dense_ff=32)
+    return _moe(mesh, 8.0, dense_ff=32)
 
 
 def case_mamba_mixer_data_parallel(mesh):

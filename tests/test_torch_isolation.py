@@ -3,7 +3,9 @@ its copies of the JAX package's framework-free modules cannot drift.
 
 The copies (obs, storage, core with compress and finetune, configs, the
 scheduler, prefetcher, traffic generator, paged KV cache, request
-frontend and shard router) must equal their originals once ``repro.``/``repro/`` is renamed to
+frontend and shard router, the lint framework, the passes keyed by
+their constructors' arguments, and the pool sanitizer) must equal their
+originals once ``repro.``/``repro/`` is renamed to
 ``repro_torch.``/``repro_torch/`` in import lines and ``-m`` strings;
 ``data/pipeline.py`` is the one copy allowed to be trimmed (it drops the
 jax-only ``make_batch_from_specs``).
@@ -36,6 +38,11 @@ COPIES = [
     "configs/kimi_k2_1t_a32b.py", "configs/mamba2_1_3b.py",
     "configs/phi3_vision_4_2b.py", "configs/qwen2_72b.py",
     "configs/qwen3_14b.py", "configs/whisper_small.py",
+    "analysis/__init__.py", "analysis/lint.py", "analysis/sanitizer.py",
+    "analysis/passes/common.py", "analysis/passes/api_drift.py",
+    "analysis/passes/frontend_clock.py", "analysis/passes/span_discipline.py",
+    "analysis/passes/wallclock.py", "analysis/passes/unused.py",
+    "analysis/passes/silent_except.py",
 ]
 
 _RENAME = re.compile(r'(\bimport |\bfrom |"-m", ")repro([./])')
@@ -71,7 +78,8 @@ def test_port_and_smoke_import_no_jax_and_no_reference():
             "repro_torch.serving.shard_pool, repro_torch.launch.mesh, "
             "repro_torch.models, repro_torch.configs, "
             "repro_torch.launch.train, repro_torch.launch.dryrun, "
-            "repro_torch.distributed.pipeline, repro_torch.data.specs; "
+            "repro_torch.distributed.pipeline, repro_torch.data.specs, "
+            "repro_torch.analysis, repro_torch.analysis.sanitizer; "
             "leaked = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(leaked); sys.exit(1 if leaked else 0)")
