@@ -90,6 +90,34 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      into ``gather_rows``, a load that skips the generation bump, a
      cross-pool map into ``virtual_matmul``), each of which must raise
      ``PoolSanitizerError`` before its kernel launches;
+  5e. pressure — the paper's working set larger than the memory that
+     holds it: the 40 batches at a slab of half the store (177 of 355
+     pages; a batch touches ~321) in cuda mode, each through the slab's
+     32-page staging tail and ``dedup_embedding``, with
+     ``store.materialize`` refused: logits within 1e-5 of host mode and
+     of dense numpy logits (computed once, before), the pool's hit flags,
+     loads, evictions and every ServeStats field but the wall-clock
+     ones equal to host mode's; the same over 2 hash shards of 88 pages
+     (owned groups and borrow sets past their shard, through its
+     overflow rows); each cuda run again under the strict PoolSanitizer
+     (0 violations, bit-equal); the FFNN product at a slab of half W1's
+     pages (K ranges through the tail) within 1e-4 of numpy; staged
+     pages, tail writes, chunks, slab and tail bytes and wall time
+     printed; ``[pressure-split]``: the single slab's first 10 batches
+     in cuda mode at tails of 8, 32 and 64 pages, the host time split by
+     step (per-page loads,
+     the next batch's prestage, tail writes, the kernel's wrapper), and
+     ``[pressure-profile]``: once more under torch.profiler;
+  5f. examples — the port's four examples (``examples/torch_*.py``) as
+     subprocesses on the card and with ``--device cpu``, all at once:
+     each exits 0 and prints the CPU run's deterministic lines
+     (``torch_train_tiny`` at ``--steps 20``, not its 200, for time;
+     its losses within 1e-3); beside them ``[cli-lm-half]``: ``python
+     -m repro_torch.launch.serve --engine lm --vocab 512
+     --capacity-pages 0`` (the reference CLI's half-the-store
+     expression; its default, 24 pages, holds the whole store) in cuda
+     mode and on the CPU: the same store and greedy tokens (the
+     ``[tokens]`` digest), the switches through the staging tail;
   6. LM      — deepseek-7b at full width (d_model 4096, 32 heads of 128,
      d_ff 11008; depth cut 30 -> 2, vocabulary 102,400 -> 32,768), two
      variants that differ in layer 1's feed-forward weights, registered
@@ -189,7 +217,7 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      local tensor bit-equal to the per-shard stack and a
      ``dedup_embedding`` gather through it equal to each shard's own;
   8. a ``{"kernels": [...]}`` line with every ported kernel's launches
-     on its path (phases 2b, 4, 5, 5b, 5c, 5d, 6, 6a, 7 and 7c), its times
+     on its path (phases 2b, 4, 5, 5b-5e, 6, 6a, 7 and 7c), its times
      and its bound;
   9. last line: ``{"ok": true, "device": {...}}``.
 
@@ -2651,6 +2679,485 @@ def sanitize_phase(torch, ops, store, heads, batches, capacity, fstore,
     return launches
 
 
+# ------------------------------------------------------------ pressure --
+def record_pools(srv):
+    """Record every hit flag the server's buffer pools return and every
+    eviction they make, in order; returns (flags, evictions)."""
+    flags, evicted = [], []
+    pools = srv.sharded.buffer_pools if hasattr(srv, "sharded") \
+        else [srv.pool]
+    for i, bp in enumerate(pools):
+        def access(model, pid, i=i, orig=bp.access):
+            out = orig(model, pid)
+            flags.append((i, int(pid), out))
+            return out
+
+        def access_group(model, pids, i=i, orig=bp.access_group):
+            out = orig(model, pids)
+            flags.append((i, "group", list(out)))
+            return out
+
+        def on_evict(pid, i=i, orig=bp.on_evict):
+            evicted.append((i, int(pid)))
+            orig(pid)
+        bp.access, bp.access_group, bp.on_evict = access, access_group, \
+            on_evict
+    return flags, evicted
+
+
+def no_host_weights(store):
+    """Make every host materialization of a weight raise."""
+    def refuse(*a, **k):
+        raise AssertionError("[pressure] a weight was materialized on the "
+                             "host")
+    store.materialize = refuse
+    store.materialize_rows = refuse
+
+
+def serve_pressed(torch, url, heads, batches, capacity, kernel_mode,
+                  shards=1, san=None, hook=None):
+    """The batches in order (overlap on, prefetch off: it reads the host
+    clock) through a server of ``capacity`` pages (a shard) on the
+    database, ``store.materialize`` refused; recorded, or instrumented by
+    ``san``; ``hook(server)`` runs before the first batch.  (logits,
+    {"engine", "server": ServeStats fields but the wall-clock ones},
+    flags, evictions, server, wall s, engine)."""
+    import dataclasses
+    from repro_torch.db import DedupDB
+    from repro_torch.launch.mesh import shard_devices
+    from repro_torch.serving import (EmbeddingServingEngine,
+                                     ShardedWeightServer, StorageModel,
+                                     WeightServer)
+    db = DedupDB.open(url)
+    no_host_weights(db.store)
+    if shards == 1:
+        srv = WeightServer(db.store, capacity, storage=StorageModel("dram"),
+                           kernel_mode=kernel_mode)
+    else:
+        srv = ShardedWeightServer(db.store, capacity,
+                                  storage=StorageModel("dram"),
+                                  shards=shards, placement="hash",
+                                  kernel_mode=kernel_mode,
+                                  devices=shard_devices(shards, kernel_mode))
+    flags = evicted = None
+    if san is not None:
+        instrument(san, srv)
+    else:
+        flags, evicted = record_pools(srv)
+    engine = EmbeddingServingEngine(srv, heads, scheduler="fifo",
+                                    overlap=True)
+    if hook is not None:
+        hook(srv)
+    out = []
+    t0 = time.perf_counter()
+    for model, docs in batches:
+        engine.submit(model, docs)
+        engine.run(max_batches=1)
+        out.append(engine.last_logits.copy())
+    if kernel_mode == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wall_fields = {"compute_seconds", "latencies", "timeline_seconds",
+                   "transfer_seconds"}
+    stats = {who: {f.name: getattr(st, f.name)
+                   for f in dataclasses.fields(st)
+                   if f.name not in wall_fields}
+             for who, st in (("engine", engine.stats), ("server", srv.stats))}
+    db.close()
+    return out, stats, flags, evicted, srv, wall, engine
+
+
+def tail_counts(srv):
+    pools = getattr(srv.device_pool, "pools", [srv.device_pool])
+    page_b = pools[0].transfer.page_nbytes
+    return dict(tail_rows=sum(p.overflow_rows for p in pools),
+                slab_bytes=sum(p.capacity for p in pools) * page_b,
+                tail_bytes=sum(p.overflow_rows for p in pools) * page_b,
+                calls=sum(p.tail_calls for p in pools),
+                staged_pages=sum(p.tail_staged for p in pools),
+                tail_writes=sum(p.tail_writes for p in pools),
+                chunks=sum(p.tail_chunks for p in pools),
+                loads=srv.device_pool.loads, evicts=srv.device_pool.evicts)
+
+
+def dense_logits(url, heads, batches):
+    """Each batch's logits from the store's materialized embeddings, in
+    numpy as the reference's host path computes them: the independent
+    reference for the staged runs, made once outside the timed runs."""
+    from repro_torch.db import DedupDB
+    db = DedupDB.open(url)
+    emb = {m: db.store.materialize(m, "embedding")
+           for m in sorted({m for m, _ in batches})}
+    db.close()
+    return [emb[m][d].mean(axis=1) @ heads[m] for m, d in batches]
+
+
+def host_split(targets):
+    """Wrap each ``(obj, attr, label)`` with a host timer; a call made
+    inside another wrapped call counts under ``caller/label``.  Returns
+    (seconds by label path, undo)."""
+    import collections
+    tot, stack, undo = collections.Counter(), [], []
+    for obj, attr, label in targets:
+        orig = getattr(obj, attr)
+
+        def timed(*a, _orig=orig, _label=label, **k):
+            stack.append(_label)
+            key = "/".join(stack)
+            t = time.perf_counter()
+            try:
+                return _orig(*a, **k)
+            finally:
+                tot[key] += time.perf_counter() - t
+                stack.pop()
+        undo.append((obj, attr, obj.__dict__.get(attr)))
+        setattr(obj, attr, timed)
+
+    def restore():
+        for obj, attr, was in reversed(undo):
+            if was is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, was)
+    return tot, restore
+
+
+def split_targets(ops, srv):
+    """What a staged batch does on the host, by step: the pool access
+    and its per-page loads (the store read, the pinned copy, the
+    host->device enqueue), the next batch's prestage, and the gather:
+    its tail writes (page stack, pinned copy, enqueue, commit) and the
+    kernel's wrapper.  The rest is the engine's own, the wait for the
+    logits included."""
+    pool = srv.device_pool
+    tr = pool.transfer
+    return [(srv, "_access", "access"),
+            (srv, "device_gather_rows", "gather"),
+            (srv.pool, "on_load", "page_load"),
+            (tr, "stage", "prestage"),
+            (pool, "_write_overflow", "tail_write"),
+            (pool.store, "page_array", "page_array"),
+            (pool.store, "page_stack", "page_stack"),
+            (tr, "host_tensor", "pinned_copy"),
+            (tr, "ship", "h2d_enqueue"),
+            (pool, "write_stage", "tail_commit"),
+            (ops, "dedup_embedding_striped", "kernel")]
+
+
+#: batches of the tail sweep and the profile (the first of the 40)
+SPLIT_BATCHES = 10
+
+
+def pressure_split(torch, ops, url, heads, batches, cap):
+    """The single slab's first :data:`SPLIT_BATCHES` batches in cuda mode
+    at overflow tails of 8, 32 (the default) and 64 pages, each with its
+    host time split by step (:func:`host_split`), then once at the
+    default under torch.profiler for the device's share."""
+    from repro_torch.serving import device_pool
+    default = device_pool.TAIL_PAGES
+    batches = batches[:SPLIT_BATCHES]
+    for tail in (8, default, 64):
+        device_pool.TAIL_PAGES = tail
+        split = {}
+
+        def hook(srv):
+            split["tot"], split["undo"] = host_split(split_targets(ops, srv))
+        try:
+            got = serve_pressed(torch, url, heads, batches, cap, "cuda",
+                                hook=hook)
+        finally:
+            device_pool.TAIL_PAGES = default
+            if "undo" in split:
+                split["undo"]()
+        wall = got[5]
+        tails = tail_counts(got[4])
+        top = sum(v for k, v in split["tot"].items() if "/" not in k)
+        parts = " ".join(f"{k}={v * 1e3:.1f}"
+                         for k, v in sorted(split["tot"].items()))
+        log(f"[pressure-split] TAIL_PAGES={tail}: tail="
+            f"{tails['tail_rows']} pages ({tails['tail_bytes']} B) "
+            f"batches={len(batches)} wall={wall:.3f}s "
+            f"per_batch={wall / len(batches) * 1e3:.2f}ms "
+            f"chunks={tails['chunks']} staged={tails['staged_pages']} "
+            f"loads={tails['loads']} host ms: {parts} "
+            f"rest={(wall - top) * 1e3:.1f}")
+    profile_serving(torch, url, heads, batches, cap,
+                    tag="[pressure-profile]", top=12,
+                    run=lambda: serve_pressed(torch, url, heads, batches,
+                                              cap, "cuda")[6])
+
+
+def pressure_phase(torch, ops, url, heads, batches, fstore):
+    """[pressure]: the paper's working set larger than the memory that
+    holds it.  The 40 batches at a slab of half the store (177 of 355
+    pages, below each batch's ~321) in cuda mode: every batch through the
+    staging tail (``TAIL_PAGES``; slab + tail below every batch's page
+    set) and ``dedup_embedding``, no weight materialized on the host,
+    logits 1e-5 of host mode and of dense numpy logits from the store's
+    materialized embeddings, and the pool's hit flags, loads, evictions
+    and ServeStats equal to host mode's; the same over 2 hash shards of
+    88 pages (owned groups and borrow sets both past their shard); each
+    run again under the strict PoolSanitizer (0 violations, bit-equal);
+    the single slab's host split, tail sweep and device profile
+    (:func:`pressure_split`); the FFNN product at a slab of half W1's
+    pages within 1e-4 of numpy.  Returns the counted runs' launches."""
+    import numpy as np
+    from repro_torch.db import DedupDB
+    from repro_torch.serving import StorageModel, WeightServer
+    t_phase = time.perf_counter()
+    db = DedupDB.open(url)
+    pages = db.store.num_pages()
+    planner = WeightServer(db.store, 2, backend="numpy")   # page maps only
+    least = min(len(planner.embedding_rows_pages(m, "embedding",
+                                                 np.unique(d)))
+                for m, d in batches)
+    db.close()
+    half = pages // 2
+    dense = dense_logits(url, heads, batches)
+    launches = {"dedup_embedding": 0, "dedup_matmul": 0}
+    for shards, cap in ((1, half), (2, half // 2)):
+        name = "single" if shards == 1 else f"{shards}xhash"
+        host = serve_pressed(torch, url, heads, batches, cap, "host", shards)
+        ops.reset_launches()
+        got = serve_pressed(torch, url, heads, batches, cap, "cuda", shards)
+        n = dict(ops.LAUNCHES)
+        for k in launches:
+            launches[k] += n[k]
+        san = counting_sanitizer()
+        checked = serve_pressed(torch, url, heads, batches, cap, "cuda",
+                                shards, san=san)
+        err = max_err(got[0], host[0])
+        derr = max_err(got[0], dense)
+        tails = tail_counts(got[4])
+        same = {"flags": got[2] == host[2], "evictions": got[3] == host[3],
+                "stats": got[1] == host[1],
+                "loads": (tails["loads"], tails["evicts"])
+                == (host[4].device_pool.loads, host[4].device_pool.evicts)}
+        bit_equal = all(np.array_equal(a, b)
+                        for a, b in zip(checked[0], got[0]))
+        st = got[1]["engine"]
+        page_b = got[4].device_pool.pools[0].transfer.page_nbytes \
+            if shards > 1 else got[4].device_pool.transfer.page_nbytes
+        log(f"[pressure] {name}: slab={cap} pages a shard of {pages} "
+            f"(slab+tail {tails['slab_bytes'] + tails['tail_bytes']} B of "
+            f"the store's {pages * page_b} B) "
+            f"batches={st['batches']} dense_fallbacks={st['dense_fallbacks']}"
+            f" device_batches={st['device_batches']} {tails} "
+            f"dedup_embedding={n['dedup_embedding']} "
+            f"max_abs_err={err:.3e} vs host mode, {derr:.3e} vs dense "
+            f"numpy (tol 1e-5) equal_to_host={same} "
+            f"wall={got[5]:.3f}s (host mode {host[5]:.3f}s) "
+            f"sanitized: events={san.emitted} "
+            f"violations={len(san.violations)} bit_equal={bit_equal} "
+            f"wall={checked[5]:.3f}s")
+        if err > 1e-5 or derr > 1e-5 or not all(same.values()) \
+                or san.violations or not bit_equal:
+            raise AssertionError(f"[pressure] {name}: err={err} "
+                                 f"dense={derr} {same} "
+                                 f"bit_equal={bit_equal}\n{san.report()}")
+        if n["dedup_embedding"] < BATCHES or tails["calls"] < 1 \
+                or st["dense_fallbacks"] != tails["calls"] \
+                or shards * cap + tails["tail_rows"] >= least:
+            raise AssertionError(f"[pressure] {name}: launches {n}, "
+                                 f"tail {tails}, stats {st}")
+        if shards == 1:
+            pressure_split(torch, ops, url, heads, batches, cap)
+    # the FFNN product with W1's pages past the slab
+    w1 = fstore.virtual_tensor("ffnn-1", "W1").page_ids
+    fcap = max(1, len(w1) // 2)
+    x = np.random.default_rng(SEED + 3).standard_normal(
+        (64, 2048)).astype(np.float32)
+    want = x @ fstore.materialize("ffnn-1", "W1")
+    ys = {}
+    for mode in ("host", "cuda"):
+        fsrv = WeightServer(fstore, fcap, storage=StorageModel("dram"),
+                            kernel_mode=mode)
+        fsrv.access_pages("ffnn-1", fstore.model_pages("ffnn-1"))
+        ops.reset_launches()
+        y = fsrv.device_matmul("ffnn-1", "W1", x)
+        if mode == "cuda":
+            torch.cuda.synchronize()
+            n = dict(ops.LAUNCHES)
+            launches["dedup_matmul"] += n["dedup_matmul"]
+            y = y.cpu().numpy()
+            ftail = tail_counts(fsrv)
+        ys[mode] = np.asarray(y)
+    ferr = float(np.abs(ys["cuda"] - want).max())
+    log(f"[pressure] FFNN: slab={fcap} pages of W1's {len(w1)} "
+        f"dedup_matmul={n['dedup_matmul']} {ftail} "
+        f"max_abs_err={ferr:.3e} vs numpy (tol 1e-4), host mode "
+        f"{float(np.abs(ys['host'] - want).max()):.3e}")
+    if not np.allclose(ys["cuda"], want, rtol=1e-4, atol=1e-4) \
+            or n["dedup_matmul"] < 1 or ftail["calls"] != 1:
+        raise AssertionError(f"[pressure] FFNN: err={ferr} launches={n} "
+                             f"tail={ftail}")
+    log(f"[pressure] seconds={time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+# ------------------------------------------------- examples + LM CLI --
+EXAMPLE_SKIP = {
+    # lines read off the host's clock or only the port prints (where each
+    # batch was served, the kernels' launches), and the database's path
+    "torch_quickstart": ("committed store to", "device:", "[kernels]"),
+    "torch_multi_model_serving": ("compute time", "end-to-end",
+                                  "p50 / p99", "device", "[kernels]"),
+    "torch_finetune_dedup": ("[kernels]",),
+    "torch_train_tiny": ("step ", "loss:", "checkpoints in"),
+}
+#: train_tiny's steps here (its default is the reference's 200)
+EXAMPLE_TRAIN_STEPS = 20
+#: train_tiny's losses, card against CPU (fp32; other GEMM orders)
+EXAMPLE_LOSS_TOL = 1e-3
+
+
+def example_lines(name, text):
+    """The lines of an example's output the card's run must print
+    exactly as the CPU's; for multi-model serving the async run's hit
+    ratio and I/O go too (the prefetch budget reads the compute clock)."""
+    lines = text.splitlines()
+    if name == "torch_multi_model_serving":
+        i = next(i for i, ln in enumerate(lines) if ln.startswith("[async"))
+        j = next(i for i, ln in enumerate(lines) if ln.startswith("[open"))
+        lines = lines[:i + 2] + lines[j:]
+    return [ln for ln in lines
+            if not ln.strip().startswith(EXAMPLE_SKIP[name])]
+
+
+def launches_printed(text):
+    """The kernel launches a port process printed (``launches={...}``
+    on its ``[kernels]`` or ``[tokens]`` line), or None."""
+    for ln in text.splitlines():
+        if ln.startswith(("[kernels]", "[tokens]")) and "launches=" in ln:
+            return json.loads(ln.split("launches=", 1)[1])
+    return None
+
+
+#: what each card process must have launched at least once
+EXAMPLE_KERNELS = {
+    "torch_quickstart": ("lsh_signature", "dedup_embedding"),
+    "torch_multi_model_serving": ("lsh_signature", "dedup_embedding"),
+    "torch_finetune_dedup": ("lsh_signature",),
+    "torch_train_tiny": (),
+    "cli-lm": ("lsh_signature", "flash_attention"),
+}
+
+
+def train_losses(text):
+    return [float(ln.split()[3]) for ln in text.splitlines()
+            if ln.startswith("step ")]
+
+
+def examples_phase(torch):
+    """[examples] + [cli-lm-half]: each port example (``examples/torch_
+    *.py``) on the card and with ``--device cpu``, all eight processes at
+    once, and the LM CLI at ``--capacity-pages 0`` (the reference's half
+    of the store, at least 2 pages) in cuda mode and on the CPU beside
+    them.  Every process exits 0; each example's deterministic lines
+    equal its CPU run's (``torch_train_tiny`` at ``--steps 20``, not the
+    reference's 200, for time: its losses within ``EXAMPLE_LOSS_TOL``);
+    the CLI's greedy tokens (the ``[tokens]`` digest) and store are equal,
+    and its card run serves the switches the half slab cannot hold
+    through the staging tail.  Returns the kernel launches the card
+    processes printed (each must have launched its path's kernels; the
+    CPU runs none)."""
+    import os
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_examples_")
+    # ten processes share the host's cores: two threads each
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), TMPDIR=tmp.name,
+               OMP_NUM_THREADS="2")
+    procs = {}
+    for name in EXAMPLE_SKIP:
+        extra = ["--steps", str(EXAMPLE_TRAIN_STEPS)] \
+            if name == "torch_train_tiny" else []
+        for device in ("cuda", "cpu"):
+            run_env = dict(env, TMPDIR=os.path.join(tmp.name, device))
+            os.makedirs(run_env["TMPDIR"], exist_ok=True)
+            procs[(name, device)] = subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+                 "--device", device, *extra], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=run_env,
+                cwd=str(ROOT))
+    cli = [sys.executable, "-m", "repro_torch.launch.serve", "--engine", "lm",
+           "--vocab", "512", "--capacity-pages", "0"]
+    for device, extra in (("cuda", []), ("cpu", ["--kernel-mode", "torch",
+                                                 "--index-mode", "torch"])):
+        procs[("cli-lm", device)] = subprocess.Popen(
+            cli + extra, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env, cwd=str(ROOT))
+    outs = {}
+    try:
+        for key, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"[examples] {key} exited "
+                                     f"{proc.returncode}:\n{out[-2000:]}\n"
+                                     f"{err[-2000:]}")
+            outs[key] = out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        tmp.cleanup()
+    launches = {}
+    for key, out in outs.items():
+        got = launches_printed(out) or {}
+        need = EXAMPLE_KERNELS[key[0]] if key[1] == "cuda" else ()
+        if any(got.get(k, 0) < 1 for k in need) \
+                or (key[1] == "cpu" and any(got.values())):
+            raise AssertionError(f"[examples] {key}: launches {got}, "
+                                 f"wanted {need}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    log(f"[examples] launches on the card: {launches}")
+    for name in EXAMPLE_SKIP:
+        card, cpu = outs[(name, "cuda")], outs[(name, "cpu")]
+        same = example_lines(name, card) == example_lines(name, cpu)
+        extra = ""
+        if name == "torch_train_tiny":
+            a, b = train_losses(card), train_losses(cpu)
+            loss_err = max(abs(x - y) for x, y in zip(a, b)) \
+                if a and len(a) == len(b) else float("inf")
+            same = same and loss_err <= EXAMPLE_LOSS_TOL
+            extra = (f" losses={len(a)} max_abs_err={loss_err:.3e} (tol "
+                     f"{EXAMPLE_LOSS_TOL})")
+        last = [ln for ln in card.splitlines() if ln.strip()][-1]
+        log(f"[examples] {name}: exit 0 on the card and the CPU, "
+            f"lines={len(example_lines(name, card))} equal={same}{extra} "
+            f"last: {last.strip()}")
+        if not same:
+            raise AssertionError(f"[examples] {name}: the card's lines "
+                                 f"differ from the CPU's:\n{card}\n----\n"
+                                 f"{cpu}")
+    kv = {}
+    for device in ("cuda", "cpu"):
+        text = outs[("cli-lm", device)]
+        lines = {tag: [ln for ln in text.splitlines() if ln.startswith(tag)]
+                 for tag in ("[store]", "[device]", "[tokens]")}
+        if not all(lines.values()):
+            raise AssertionError(f"[cli-lm-half] {device}: missing lines:\n"
+                                 f"{text}")
+        kv[device] = {tag: ln[0] for tag, ln in lines.items()}
+        kv[device]["dev"] = dict(p.split("=", 1)
+                                 for p in lines["[device]"][0].split()
+                                 if "=" in p)
+    card, cpu = kv["cuda"], kv["cpu"]
+    log(f"[cli-lm-half] card: {card['[store]']} | {card['[device]']} | "
+        f"{card['[tokens]']}")
+    log(f"[cli-lm-half] cpu:  {cpu['[device]']} | {cpu['[tokens]']}")
+    if card["[tokens]"].split(" launches=")[0] \
+            != cpu["[tokens]"].split(" launches=")[0] \
+            or card["[store]"] != cpu["[store]"] \
+            or card["dev"]["mode"] != "cuda" \
+            or int(card["dev"]["dense_fallbacks"]) < 1 \
+            or card["dev"]["dense_fallbacks"] != cpu["dev"]["dense_fallbacks"]:
+        raise AssertionError(f"[cli-lm-half] {card} / {cpu}")
+    log(f"[examples] seconds={time.perf_counter() - t0:.1f}")
+    return launches
+
+
 # -------------------------------------------------------------- training --
 def train_config():
     import dataclasses
@@ -3272,12 +3779,11 @@ def main() -> int:
     from repro_torch.serving.engine import StorageModel, WeightServer
     planner = WeightServer(store, 2, backend="numpy")   # page maps only
     # The slab holds the largest page group one batch can pin, with no
-    # margin: a variant's whole embedding tensor.  A batch's pages are
-    # pinned as a group and cuda mode raises on a group the slab cannot
-    # hold, so "half the store" cannot serve at this vocabulary (a
-    # 512-token batch touches nearly all of its variant's pages).  The
-    # size comes from the store alone, not from the traffic, and every
-    # switch to another variant evicts.
+    # margin: a variant's whole embedding tensor, so every batch is served
+    # off the slab itself (a 512-token batch touches nearly all of its
+    # variant's pages).  The size comes from the store alone, not from the
+    # traffic, and every switch to another variant evicts.  [pressure]
+    # serves the same traffic at half the store, through the staging tail.
     capacity = max(len(planner.tensor_pages(m, "embedding"))
                    for m in store.dedup.models)
     worst = max(len(planner.embedding_rows_pages(m, "embedding",
@@ -3326,7 +3832,11 @@ def main() -> int:
         f"p99={st.percentile(99) * 1e3:.2f}ms")
     log(f"[device] slab={pool.capacity} pages loads={pool.loads} "
         f"evicts={pool.evicts} device_batches={st.device_batches} "
-        f"dense_fallbacks={st.dense_fallbacks} mode={pool.mode()}")
+        f"dense_fallbacks={st.dense_fallbacks} mode={pool.mode()} "
+        f"tail={pool.overflow_rows} pages "
+        f"slab_bytes={pool.capacity * pool.transfer.page_nbytes} "
+        f"tail_bytes={pool.overflow_rows * pool.transfer.page_nbytes} "
+        f"staged={pool.tail_staged}")
     log(f"[transfer] pages={st.transfer_pages} ops={st.transfer_groups} "
         f"mean_group={st.mean_group_size:.1f} bytes={st.transfer_bytes} "
         f"moved={st.transfer_seconds * 1e3:.3f}ms "
@@ -3400,12 +3910,23 @@ def main() -> int:
                                   capacity, fstore, shard_cap).items():
         launches[name] += n
 
+    # ---------------------------- 5e. serving past the slab (pressure) --
+    for name, n in pressure_phase(torch, ops, url, heads, batches,
+                                  fstore).items():
+        launches[name] += n
+
+    # -------------- 5f. the port's examples and the LM CLI at half --
+    # launches printed by the card's processes of the slice's path
+    example_launches = examples_phase(torch)
+
     # ----------------------------------------------------------- 6. LM --
     t0 = time.perf_counter()
     lm_recs, lm_launches, lm_traffic_launches, lm_store_out = lm_phase(
         torch, ops, ref, tmp.name)
     recs.update(lm_recs)
     launches.update(lm_launches)
+    for name, n in example_launches.items():
+        launches[name] += n
     launches["flash_attention"] += lm_traffic_launches
     # the index build's windows: the word2vec build and update, the LM
     # store's two variants

@@ -56,6 +56,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
+import json
 
 import numpy as np
 
@@ -63,6 +65,7 @@ from ..core import DedupConfig, LSHConfig, ModelStore, StoreConfig
 from ..core.device_index import DeviceModelStore
 from ..core.lsh import estimate_r
 from ..data.pipeline import SyntheticTextTask
+from ..kernels import ops
 from ..serving.device_pool import KERNEL_MODES
 from ..serving.engine import (EmbeddingServingEngine, LMServingEngine,
                               ServeStats, StorageModel, WeightServer)
@@ -187,12 +190,21 @@ def _print_index(store: DeviceModelStore) -> None:
 def _print_stats(args, stats: ServeStats, server: WeightServer,
                  engine=None) -> None:
     if args.backend == "device":
-        print(f"[device] slab={server.device_pool.capacity} pages "
-              f"loads={server.device_pool.loads} "
-              f"evicts={server.device_pool.evicts} "
+        dp = server.device_pool
+        pools = getattr(dp, "pools", [dp])       # a sharded pool's shards
+        page_b = pools[0].transfer.page_nbytes
+        tail = sum(p.overflow_rows for p in pools)
+        print(f"[device] slab={dp.capacity} pages "
+              f"loads={dp.loads} "
+              f"evicts={dp.evicts} "
               f"device_batches={stats.device_batches} "
               f"dense_fallbacks={stats.dense_fallbacks} "
-              f"mode={server.device_pool.mode()}")
+              f"mode={dp.mode()} tail={tail} pages "
+              f"slab_bytes={dp.capacity * page_b} "
+              f"tail_bytes={tail * page_b} "
+              f"staged={sum(p.tail_staged for p in pools)} "
+              f"tail_writes={sum(p.tail_writes for p in pools)} "
+              f"chunks={sum(p.tail_chunks for p in pools)}")
         hbm = server._hbm()
         print(f"[transfer] mode={args.transfer} "
               f"pages={stats.transfer_pages} ops={stats.transfer_groups} "
@@ -498,11 +510,7 @@ def serve_lm(args) -> tuple:
     api = build(cfg)
     apis = {name: api for name in names}
     templates = {name: {"rebuild": lm.rebuild} for name in names}
-    # the slab holds one variant's page set unless told otherwise: a
-    # model switch pins that set as one group, and on the card a group
-    # the slab cannot hold is an error
-    cap = args.capacity_pages or max(len(store.model_pages(n))
-                                     for n in names)
+    cap = args.capacity_pages or max(2, store.num_pages() // 2)
     if args.store_url:
         db, _ = _open_db(args, store)
         engine = db.serve_lm(apis, templates, capacity_pages=cap,
@@ -537,8 +545,23 @@ def serve_lm(args) -> tuple:
             engine.submit(name, prompts, steps=args.lm_steps)
         clock = None
         tracer, activate = _make_tracer(args)
+        tokens = []
         with activate:
-            stats = engine.run()
+            while engine.scheduler.pending():
+                done = engine.stats.batches
+                engine.run(max_batches=1)
+                if engine.stats.batches == done:
+                    break
+                tokens.append(engine.last_tokens)
+            stats = engine.stats
+        # the greedy tokens of every batch, in order, as one digest: two
+        # runs (the card's and the CPU's) compare by this line, beside the
+        # kernels this process launched
+        digest = hashlib.sha256(b"".join(
+            np.ascontiguousarray(t, np.int32).tobytes() for t in tokens))
+        print(f"[tokens] batches={len(tokens)} "
+              f"sha256={digest.hexdigest()[:16]} "
+              f"launches={json.dumps(ops.LAUNCHES, separators=(',', ':'))}")
     _print_stats(args, stats, server, engine)
     _export_obs(args, tracer, stats, server, engine, clock)
     return stats, server
@@ -558,10 +581,10 @@ def main(argv=None):
     ap.add_argument("--models", type=int, default=6)
     ap.add_argument("--batches", type=int, default=60)
     ap.add_argument("--batch-size", type=int, default=32)
-    ap.add_argument("--capacity-pages", type=int, default=None,
-                    help="slab / pool pages (default: 24 for the "
-                         "embedding engine; one variant's page set for "
-                         "the LM engine)")
+    ap.add_argument("--capacity-pages", type=int, default=24,
+                    help="slab / pool pages (the reference's default, 24; "
+                         "0 gives the LM engine half the store's pages, "
+                         "at least 2)")
     ap.add_argument("--policy", default="optimized_mru")
     ap.add_argument("--storage", default="ssd",
                     choices=list(("ssd", "hdd", "nvme", "dram")))
@@ -676,8 +699,6 @@ def main(argv=None):
                          "mid-run without a snapshot just loses work)")
     if args.engine == "lm":
         return serve_lm(args)
-    if args.capacity_pages is None:
-        args.capacity_pages = 24
     return serve_embedding(args)
 
 

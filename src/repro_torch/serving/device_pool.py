@@ -9,7 +9,10 @@ are host DRAM (the ModelStore's distinct-block arrays) and HBM
     blocks_per_page, bh, bw]``, a torch tensor on the pool's device —
     page loads are real host->device copies committed with
     ``index_copy_``; the ``stage_rows`` past ``capacity`` are the
-    borrow-staging tail of a sharded pool (:meth:`write_stage`);
+    staging tail (:meth:`write_stage`): a sharded pool's borrows, and
+    in its last ``overflow_rows`` the pages a compute call needs that
+    the buffer pool did not leave resident (a batch or a model switch
+    larger than the slab);
   * a **physical->slot remap**: :meth:`remap` rewrites a
     ``ModelStore.virtual_tensor`` flat block map (physical slot space,
     ``page * l + slot``) into slab-slot space (``slab_slot * l + slot``)
@@ -17,6 +20,14 @@ are host DRAM (the ModelStore's distinct-block arrays) and HBM
   * **compute entry points** — :meth:`gather_rows`, :meth:`virtual_matmul`,
     :meth:`unblock` — that run the dedup kernels directly against the
     resident slab, so inference never densifies weights on the host.
+    Given the tensor's physical ``block_map``, a map with holes (pages
+    not resident) is served through the overflow tail: the call's
+    missing pages are written there and the same kernel reads a map
+    into slab + tail, in chunks that each fit (page groups for a gather
+    and for :meth:`unblock`, each missing page staged once; K ranges
+    summed in fp32 for a product).  The tail is outside the buffer
+    pool: it changes no residency, hit or eviction, and no remap
+    generation.
 
 The pool is driven by :class:`~repro_torch.core.bufferpool.BufferPool`
 through its ``on_load``/``on_evict`` callbacks: the policy simulator
@@ -51,11 +62,23 @@ from ..kernels import ops, ref
 from ..obs import get_tracer
 from .transfer import TransferEngine
 
-__all__ = ["DevicePagePool", "KERNEL_MODES", "resolve_kernel_mode"]
+__all__ = ["DevicePagePool", "KERNEL_MODES", "TAIL_PAGES",
+           "resolve_kernel_mode", "tail_size"]
 
 KERNEL_MODES = ("auto", "cuda", "torch", "host")
 #: the GPU the hand-written kernels are built for (Hopper, sm_90a)
 CUDA_CAPABILITY = (9, 0)
+#: overflow-tail pages of a serving slab, at most half its capacity.  A
+#: call whose missing pages exceed it is served in chunks, so the size
+#: trades chunks for device memory; ``chip_smoke.py``'s ``[pressure]``
+#: sweep times 8, 32 and 64 pages on the H100.
+TAIL_PAGES = 32
+
+
+def tail_size(capacity_pages: int) -> int:
+    """Overflow-tail pages for a slab of ``capacity_pages``:
+    :data:`TAIL_PAGES`, at most half the slab, at least 1."""
+    return max(1, min(TAIL_PAGES, int(capacity_pages) // 2))
 
 
 def resolve_kernel_mode(kernel_mode: str, device=None,
@@ -93,7 +116,7 @@ class DevicePagePool:
 
     def __init__(self, store: ModelStore, capacity_pages: int,
                  dtype=torch.float32, kernel_mode: str = "auto",
-                 device=None, stage_rows: int = 0):
+                 device=None, stage_rows: int = 0, overflow_rows: int = 0):
         self.kernel_mode = kernel_mode
         self._mode = resolve_kernel_mode(kernel_mode, device)
         self.store = store
@@ -101,12 +124,25 @@ class DevicePagePool:
         self.block_shape = (bh, bw)
         self.blocks_per_page = store.cfg.blocks_per_page
         self.capacity = int(capacity_pages)
-        # Borrow-staging tail (sharded serving): ``stage_rows`` page rows
-        # past the resident slots, written only by :meth:`write_stage`.
-        # Extended remaps point borrowed pages at ``capacity + stage_idx``,
-        # so the kernels read one stable buffer.  No load, group commit
-        # or free slot ever lands there (``_free`` covers ``capacity``).
+        # Staging tail: ``stage_rows`` page rows past the resident slots,
+        # written only by :meth:`write_stage`.  Extended remaps point a
+        # sharded pool's borrowed pages at ``capacity + stage_idx``, so
+        # the kernels read one stable buffer.  No load, group commit or
+        # free slot ever lands there (``_free`` covers ``capacity``).
+        # The last ``overflow_rows`` of it take the pages a compute call
+        # needs that the buffer pool did not leave resident.
         self.stage_rows = int(stage_rows)
+        self.overflow_rows = int(overflow_rows)
+        if not 0 <= self.overflow_rows <= self.stage_rows:
+            raise ValueError(f"overflow_rows {overflow_rows} outside the "
+                             f"staging tail of {stage_rows}")
+        self._overflow0 = self.stage_rows - self.overflow_rows
+        # compute calls served through the overflow tail, their kernel
+        # calls (a chunk each), and the tail writes and pages they made
+        self.tail_calls = 0
+        self.tail_chunks = 0
+        self.tail_writes = 0
+        self.tail_staged = 0
         self.dtype = dtype
         self.device = self._resolve_device(device)
         rows = self.capacity + self.stage_rows
@@ -279,11 +315,9 @@ class DevicePagePool:
         generation under ``key``).
 
         ``strict=True`` returns None when *any* of the tensor's pages is
-        not resident (whole-tensor consumers: unblock / virtual_matmul).
-        ``strict=False`` returns the map with ``-1`` holes for absent
-        pages — a row-gather caller that has already faulted its batch's
-        pages (and verified them via :meth:`pages_resident`) only touches
-        resident entries, so partial residency still serves off the slab.
+        not resident.  ``strict=False`` returns the map with ``-1`` holes
+        for absent pages: the compute entry points, given the tensor's
+        physical block map, serve those through the overflow tail.
         """
         hit = self._remap_cache.get(key) if key is not None else None
         if hit is not None and hit[0] == self.store.pack_generation \
@@ -306,9 +340,103 @@ class DevicePagePool:
     def pages_resident(self, pages) -> bool:
         return all(p in self.slot_of for p in pages)
 
+    # ------------------------------------------------------ overflow tail --
+    # The compute call is not a fetch of its own: the engines charged its
+    # pages at their access, as the reference charges the host path that
+    # reads them (nothing more for a batch, the fault cursor for a model
+    # switch).  The copy's time shows in the tail counters.
+    # repro: allow-uncharged
+    def _write_overflow(self, pages: np.ndarray) -> np.ndarray:
+        """Write ``pages`` (at most ``overflow_rows``) into the overflow
+        tail in one upload and one ``index_copy_``; returns the slab row
+        each landed in.  The stream orders the write after the kernels
+        that read the tail before it."""
+        stack = self.store.page_stack(pages, dtype=np.float32)
+        slots = self._overflow0 + np.arange(len(pages))
+        rows = stack if self._mode == "host" \
+            else self.transfer.upload(stack)[0]
+        self.write_stage(slots, rows)
+        self.tail_writes += 1
+        self.tail_staged += len(pages)
+        return self.capacity + slots
+
+    def _tail_room(self) -> int:
+        if self.overflow_rows < 1:
+            raise RuntimeError(
+                "a compute call needs pages the slab does not hold and the "
+                "pool has no overflow tail (overflow_rows=0)")
+        return self.overflow_rows
+
+    def _pieces(self, phys2d: np.ndarray, dev2d: np.ndarray, rbs):
+        """Cut the block rows ``rbs`` (ascending) of a call into pieces
+        whose missing pages each fit the overflow tail: ``(block rows,
+        first column, end column, missing pages)``.  Whole block rows go
+        together while they fit; a block row that alone does not is cut
+        into column ranges."""
+        l, cap = self.blocks_per_page, self._tail_room()
+        gw = dev2d.shape[1]
+        out, cur, cur_pages = [], [], set()
+        for rb in rbs:
+            pages = set((phys2d[rb][dev2d[rb] < 0] // l).tolist())
+            if len(cur_pages | pages) <= cap:
+                cur.append(rb)
+                cur_pages |= pages
+                continue
+            if cur:
+                out.append((cur, 0, gw, cur_pages))
+            cur, cur_pages = [], set()
+            if len(pages) <= cap:
+                cur, cur_pages = [rb], pages
+                continue
+            j0, part = 0, set()
+            for j in range(gw):
+                p = {int(phys2d[rb, j]) // l} if dev2d[rb, j] < 0 else set()
+                if len(part | p) > cap:
+                    out.append(([rb], j0, j, part))
+                    j0, part = j, set()
+                part |= p
+            out.append(([rb], j0, gw, part))
+        if cur:
+            out.append((cur, 0, gw, cur_pages))
+        return out
+
+    def _fill(self, dev2d, phys2d, rbs, j0: int, j1: int, pages):
+        """Write ``pages`` into the overflow tail and return columns
+        ``j0:j1`` of the map with the holes of block rows ``rbs``
+        pointed there (int32; other rows keep their holes)."""
+        m = dev2d[:, j0:j1].copy()
+        if pages:
+            l = self.blocks_per_page
+            pages = np.array(sorted(pages), np.int64)
+            rows = self._write_overflow(pages)
+            sub, phys = m[rbs], phys2d[rbs, j0:j1]
+            hole = sub < 0
+            sub[hole] = rows[np.searchsorted(pages, phys[hole] // l)] * l \
+                + phys[hole] % l
+            m[rbs] = sub
+        self.tail_chunks += 1
+        return np.ascontiguousarray(m, np.int32)
+
     # ------------------------------------------------------------ compute --
+    def _gather(self, bmap2d: np.ndarray, ids: np.ndarray, width: int):
+        """The gather itself: rows ``ids`` through ``bmap2d`` [gh, gw'],
+        ``width`` columns (an array in host mode, a tensor otherwise)."""
+        bh, bw = self.block_shape
+        gw = bmap2d.shape[1]
+        if self._mode == "host":
+            slab = self.host_slab
+            flat_rows = slab.reshape(-1, bw)
+            rb, off = ids // bh, ids % bh
+            out = flat_rows[bmap2d[rb] * bh + off[:, None]]  # [n, gw, bw]
+            return out.reshape(len(ids), gw * bw)[:, :width]
+        ids_t = self._put(ids.astype(np.int32))
+        bmap_t = self._put(bmap2d.astype(np.int32))
+        kernel = ops if self._mode == "cuda" else ref
+        return kernel.dedup_embedding_striped(ids_t, self.flat_pool(), bmap_t,
+                                              width=width)
+
     def gather_rows(self, dev_map: np.ndarray, grid: BlockGrid,
-                    rows: np.ndarray, pad: bool = False):
+                    rows: np.ndarray, pad: bool = False, block_map=None):
         """Rows of the virtual 2-D tensor, gathered from the resident
         slab.  cuda mode runs the ``dedup_embedding`` kernel (every
         column stripe in one launch); torch mode its plain version; host
@@ -318,60 +446,105 @@ class DevicePagePool:
         In the tensor modes ``rows`` is padded to a power-of-two bucket
         so downstream shapes stay stable; ``pad=True`` returns the padded
         ``[bucket, width]`` tensor (rows past ``n`` repeat a requested
-        row) — indices into the first ``n`` rows are unaffected."""
+        row) — indices into the first ``n`` rows are unaffected.
+
+        A row whose block the map leaves a hole (-1: its page is not
+        resident) is served through the overflow tail when the tensor's
+        physical ``block_map`` is given, in groups of pages that each
+        fit; without it the call returns None."""
         bh, bw = self.block_shape
         gh, gw = grid.grid
         width = grid.shape2d[1]
         rows = np.asarray(rows)      # repro: allow-host (index array)
         n = len(rows)
         bmap2d = dev_map.reshape(gh, gw)
-        # Partial remaps carry -1 holes; a negative index would read the
-        # wrong slab bytes, so a touched hole (the caller's page set
-        # failed to cover its rows) must surface as None — the engines
-        # then take the host fallback instead of serving garbage.
-        if n and (bmap2d[np.unique(rows // bh)] < 0).any():
-            return None
-        mode = self._mode
-        l = self.blocks_per_page
-        if mode == "host":
-            with get_tracer().span("kernel", kind="kernel",
-                                   op="gather_rows", mode=mode, rows=n):
-                slab = self.host_slab
-                flat_rows = slab.reshape(slab.shape[0] * l * bh, bw)
-                rb, off = rows // bh, rows % bh
-                out = flat_rows[bmap2d[rb] * bh + off[:, None]]  # [n,gw,bw]
-                return out.reshape(n, gw * bw)[:, :width]
         # Pad with a *requested* row, not row 0: under partial residency
         # row 0's block may be absent and must never be touched.
-        ids = np.full(_pad_pow2(max(n, 1)), rows[0] if n else 0, np.int32)
-        ids[:n] = rows
+        ids = rows if self._mode == "host" else np.concatenate(
+            [rows, np.full(_pad_pow2(max(n, 1)) - n,
+                           rows[0] if n else 0, rows.dtype)])
+        rbs = np.unique(ids // bh)
+        staged = n and (bmap2d[rbs] < 0).any()
+        if staged and block_map is None:
+            return None
         with get_tracer().span("kernel", kind="kernel", op="gather_rows",
-                               mode=mode, rows=n):
-            pool = self.flat_pool()
-            ids_t = self._put(ids)
-            bmap_t = self._put(bmap2d.astype(np.int32))
-            if mode == "cuda":
-                out = ops.dedup_embedding_striped(ids_t, pool, bmap_t,
-                                                  width=width)
+                               mode=self._mode, rows=n,
+                               staged=bool(staged)) as sp:
+            if not staged:
+                out = self._gather(bmap2d, ids, width)
             else:
-                out = ref.dedup_embedding_striped(ids_t, pool, bmap_t,
-                                                  width=width)
-        return out if pad else out[:n]
+                chunks = self.tail_chunks
+                out = self._gather_staged(bmap2d, block_map.reshape(gh, gw),
+                                          ids, rbs, width)
+                sp.set(chunks=self.tail_chunks - chunks)
+        return out if pad or self._mode == "host" else out[:n]
 
-    def virtual_matmul(self, dev_map: np.ndarray, grid: BlockGrid, x):
+    def _gather_staged(self, dev2d, phys2d, ids, rbs, width: int):
+        """:meth:`gather_rows` through the overflow tail, each missing
+        page staged once: one gather of the resident blocks (a hole reads
+        slab block 0, overwritten below), then the missing pages in
+        groups the tail holds, each written there and gathered for the
+        rows that read it, its blocks' stripes merged into the result."""
+        bh, bw = self.block_shape
+        l = self.blocks_per_page
+        cap = self._tail_room()
+        self.tail_calls += 1
+        host = self._mode == "host"
+        hole = dev2d < 0
+        out = self._gather(np.where(hole, 0, dev2d), ids, width)
+        self.tail_chunks += 1
+        rb_of = ids // bh
+        page_of = phys2d // l
+        pages = np.unique(page_of[rbs][hole[rbs]])
+        for c in range(0, len(pages), cap):
+            group = pages[c:c + cap]
+            rows = self._write_overflow(group)
+            in_g = hole & np.isin(page_of, group)
+            m = np.where(in_g, rows[np.searchsorted(
+                group, np.where(in_g, page_of, group[0]))] * l
+                + phys2d % l, np.where(hole, 0, dev2d))
+            sel = np.flatnonzero(in_g[rb_of].any(axis=1))
+            part = self._gather(m, ids[sel], width)
+            self.tail_chunks += 1
+            if host:
+                cols = np.repeat(in_g[rb_of[sel]], bw, axis=1)[:, :width]
+                out[sel] = np.where(cols, part, out[sel])
+                continue
+            sel_t = self._put(sel)
+            cols = self._put(in_g)[self._put(rb_of[sel])] \
+                .repeat_interleave(bw, dim=1)[:, :width]
+            out.index_copy_(0, sel_t, torch.where(
+                cols, part, out.index_select(0, sel_t)))
+        return out
+
+    def virtual_matmul(self, dev_map: np.ndarray, grid: BlockGrid, x,
+                       block_map=None):
         """``x @ W_virtual`` with W never densified on the host: the
         ``dedup_matmul`` kernel streams slab blocks through the block map
         (cuda); torch mode runs its plain version against the slab; host
-        mode runs the same k-loop blockwise in numpy against the mirror."""
+        mode runs the same k-loop blockwise in numpy against the mirror.
+
+        A map with holes is served through the overflow tail when the
+        physical ``block_map`` is given: K ranges whose missing pages
+        each fit the tail, their products summed in fp32 (host mode
+        keeps its k-loop order, so its sum is unchanged); without it the
+        call returns None."""
         bh, bw = self.block_shape
         gh, gw = grid.grid
         K, N = grid.shape2d
         bmap2d = dev_map.reshape(gh, gw)
+        staged = bool((bmap2d < 0).any())
+        if staged and block_map is None:
+            return None
+        if staged:
+            self.tail_calls += 1
+            phys2d = block_map.reshape(gh, gw)
+            pieces = self._pieces(phys2d, bmap2d, range(gh))
+        else:
+            pieces = [(range(gh), 0, gw, None)]
         mode = self._mode
-        l = self.blocks_per_page
         if mode == "host":
-            slab = self.host_slab
-            blocks = slab.reshape(slab.shape[0] * l, bh, bw)
+            blocks = self.host_slab.reshape(-1, bh, bw)
             # repro: allow-host — host-mode kernel: the mirror IS the tier
             x = np.asarray(x, dtype=np.float32)
             xp = x
@@ -382,14 +555,18 @@ class DevicePagePool:
                 xp = np.zeros(x.shape[:-1] + (gh * bh,), np.float32)
                 xp[..., :K] = x
             y = np.zeros(x.shape[:-1] + (gw * bw,), np.float32)
-            for j in range(gw):                  # the kernel's (j, k) loops
-                acc = y[..., j * bw:(j + 1) * bw]
-                for k in range(gh):
-                    acc += xp[..., k * bh:(k + 1) * bh] \
-                        @ blocks[bmap2d[k, j]]
+            for ks, j0, j1, pages in pieces:
+                m = bmap2d if not staged else \
+                    self._fill(bmap2d, phys2d, ks, j0, j1, pages)
+                for j in range(j0, j1):          # the kernel's (j, k) loops
+                    acc = y[..., j * bw:(j + 1) * bw]
+                    for k in ks:
+                        acc += xp[..., k * bh:(k + 1) * bh] \
+                            @ blocks[m[k, j - j0]]
             return y[..., :N]
         with get_tracer().span("kernel", kind="kernel",
-                               op="virtual_matmul", mode=mode):
+                               op="virtual_matmul", mode=mode,
+                               staged=staged):
             x = torch.as_tensor(x, device=self.device)
             if x.dtype not in (torch.float32, torch.bfloat16):
                 x = x.to(self.dtype)
@@ -399,32 +576,87 @@ class DevicePagePool:
                     raise ValueError(f"x has {x.shape[-1]} features, the "
                                      f"tensor has {K} rows")
                 x = torch.nn.functional.pad(x, (0, pad))
-            pool = self.flat_pool()
-            bmap_t = self._put(bmap2d.astype(np.int32))
-            if mode == "cuda":
-                y = ops.dedup_matmul(x.contiguous(), pool, bmap_t)
-            else:
-                y = ref.dedup_matmul(x, pool, bmap_t)
-            return y[..., :N]
+            if not staged:
+                return self._matmul(x, bmap2d)[..., :N]
+            y = torch.zeros(x.shape[:-1] + (gw * bw,), dtype=torch.float32,
+                            device=self.device)
+            for ks, j0, j1, pages in pieces:
+                m = self._fill(bmap2d, phys2d, ks, j0, j1, pages)
+                k0, k1 = ks[0], ks[-1] + 1
+                y[..., j0 * bw:j1 * bw] += self._matmul(
+                    x[..., k0 * bh:k1 * bh], m[k0:k1]).float()
+            return y.to(x.dtype)[..., :N]
 
-    def unblock(self, dev_map: np.ndarray, grid: BlockGrid):
+    def _matmul(self, x: torch.Tensor, bmap2d: np.ndarray) -> torch.Tensor:
+        """``x @`` the blocks of ``bmap2d`` (x's width is its rows x bh)."""
+        bmap_t = self._put(bmap2d.astype(np.int32))
+        if self._mode == "cuda":
+            return ops.dedup_matmul(x.contiguous(), self.flat_pool(), bmap_t)
+        return ref.dedup_matmul(x, self.flat_pool(), bmap_t)
+
+    def unblock(self, dev_map: np.ndarray, grid: BlockGrid, block_map=None):
         """Full tensor reassembled from resident slab blocks (the LM
         model-switch path; np from the mirror in host mode, a tensor on
-        the pool's device otherwise)."""
-        l = self.blocks_per_page
-        bh, bw = self.block_shape
+        the pool's device otherwise).  A map with holes is served through
+        the overflow tail when the physical ``block_map`` is given: the
+        missing pages in groups that each fit, their blocks gathered
+        after each group's write; without it the call returns None."""
+        hole = dev_map < 0
+        staged = bool(hole.any())
+        if staged and block_map is None:
+            return None
         mode = self._mode
+        gh, gw = grid.grid
+        K, N = grid.shape2d
         with get_tracer().span("kernel", kind="kernel", op="unblock",
-                               mode=mode):
+                               mode=mode, staged=staged):
             if mode == "host":
                 from ..core.blocks import unblock_tensor
-                slab = self.host_slab
-                blocks = slab.reshape(slab.shape[0] * l, bh, bw)[dev_map]
+                blocks = self._unblock_staged(dev_map, block_map, hole) \
+                    if staged else self._blocks(dev_map)
                 return unblock_tensor(blocks, grid)
-            gh, gw = grid.grid
-            K, N = grid.shape2d
-            W = ref.materialize_virtual(self.flat_pool(),
-                                        self._put(dev_map.reshape(gh, gw)),
-                                        K, N)
+            if not staged:
+                W = ref.materialize_virtual(
+                    self.flat_pool(), self._put(dev_map.reshape(gh, gw)),
+                    K, N)
+            else:
+                W = ref.materialize_virtual(
+                    self._unblock_staged(dev_map, block_map, hole),
+                    self._put(np.arange(gh * gw).reshape(gh, gw)), K, N)
             return W.reshape(grid.tensor_shape)
 
+    def _blocks(self, idx: np.ndarray):
+        """Slab blocks ``idx`` of the kernel view (the mirror's in host
+        mode)."""
+        if self._mode == "host":
+            bh, bw = self.block_shape
+            return self.host_slab.reshape(-1, bh, bw)[idx]
+        return self.flat_pool()[self._put(idx)]
+
+    def _unblock_staged(self, dev_map, phys, hole):
+        """The blocks of ``dev_map`` in order: resident ones off the
+        slab, the rest through the overflow tail a page group at a
+        time."""
+        cap = self._tail_room()
+        l = self.blocks_per_page
+        self.tail_calls += 1
+        shape = (len(dev_map),) + self.block_shape
+        host = self._mode == "host"
+        blocks = np.empty(shape, np.float32) if host else torch.empty(
+            shape, dtype=self.dtype, device=self.device)
+        put = (lambda idx: idx) if host else self._put
+        keep = np.flatnonzero(~hole)
+        if len(keep):
+            blocks[put(keep)] = self._blocks(dev_map[keep])
+        miss = np.flatnonzero(hole)
+        mpages = phys[miss] // l
+        pages = np.unique(mpages)
+        for c in range(0, len(pages), cap):
+            group = pages[c:c + cap]
+            rows = self._write_overflow(group)
+            sel = miss[np.isin(mpages, group)]
+            blocks[put(sel)] = self._blocks(
+                rows[np.searchsorted(group, phys[sel] // l)] * l
+                + phys[sel] % l)
+            self.tail_chunks += 1
+        return blocks

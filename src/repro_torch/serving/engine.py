@@ -170,7 +170,10 @@ class ServeStats:
     timeline_seconds: float = 0.0    # double-buffered makespan (async runs)
     overlapped: bool = False         # engine ran with overlap=True
     device_batches: int = 0          # batches computed against the HBM slab
-    dense_fallbacks: int = 0         # device batches that fell back to host
+    dense_fallbacks: int = 0         # batches and switches the slab could
+    #                                  not hold, served through the staging
+    #                                  tail (and, in the CPU modes, those
+    #                                  degraded to the host by a fault)
     # -- host->HBM transfer engine (serving/transfer.py) --
     transfer_seconds: float = 0.0    # seconds moving pages host->HBM:
     #                                  device time (CUDA events) on a GPU
@@ -301,10 +304,12 @@ class WeightServer:
     to the device pool ("auto" = "cuda", the hand-written kernels, and
     raises without a CUDA device of capability (9, 0); "torch" the plain
     PyTorch versions; "host" numpy gathers from the slab's host mirror.
-    See DevicePagePool's docstring).  In cuda mode a batch the slab
-    cannot serve raises (:meth:`host_fallback_allowed`).  ``device``
-    places the slab (the CUDA device in cuda mode; the CPU by default in
-    torch mode, where a CUDA device runs the plain versions on the card).
+    See DevicePagePool's docstring).  A batch or a model switch whose
+    pages the slab cannot hold is served on the slab's device through
+    its staging tail (``device_pool.tail_size`` pages past the slab),
+    where the reference computes on the host.  ``device`` places the
+    slab (the CUDA device in cuda mode; the CPU by default in torch
+    mode, where a CUDA device runs the plain versions on the card).
     ``backend="numpy"`` is how a caller chooses the host simulator: the
     pool is a policy simulator and weights are materialized on the host.
     """
@@ -330,10 +335,12 @@ class WeightServer:
         self.device_pool = None
         on_load = on_evict = on_load_group = None
         if backend == "device":
-            from .device_pool import DevicePagePool
+            from .device_pool import DevicePagePool, tail_size
+            tail = tail_size(capacity_pages)
             self.device_pool = DevicePagePool(store, capacity_pages,
                                               kernel_mode=kernel_mode,
-                                              device=device)
+                                              device=device, stage_rows=tail,
+                                              overflow_rows=tail)
             on_load = self.device_pool.load
             on_evict = self.device_pool.evict
             if transfer == "grouped":
@@ -384,27 +391,24 @@ class WeightServer:
         return self._pool_arr
 
     def host_fallback_allowed(self) -> bool:
-        """Whether a device-backend batch may be computed on the host
-        when the slab cannot serve it.  Only the CPU kernel modes keep
-        the reference's fallback; in cuda mode the slab is on the card
-        and a batch the slab cannot serve is an error, never a silent
-        move of the work to the CPU."""
+        """Whether a batch or a model switch whose access or gather
+        failed past its retry budget (``StorageFaultError``) may degrade
+        to the host, as the reference's recovery path does.  Only the
+        CPU kernel modes keep it; in cuda mode the slab is on the card
+        and the fault is raised, never a silent move of the work to the
+        CPU.  Nothing goes to the host because of the slab's size."""
         return self.device_pool is None or self.device_pool.mode() != "cuda"
 
     def _access(self, model: str, page_ids) -> List[bool]:
         """Device backend touches a batch's pages as a pinned group so
         same-batch misses cannot tear the slab-resident working set; a
-        group too large for the pool raises in cuda mode and falls back
-        to unpinned access in the CPU modes (the compute path then falls
-        back to the host)."""
+        group too large for the pool falls back to unpinned per-page
+        access (the compute path then serves the pages the pool did not
+        leave resident through the slab's staging tail)."""
         if self.backend == "device":
             try:
                 return self.pool.access_group(model, page_ids)
             except ValueError:
-                if not self.host_fallback_allowed():
-                    raise
-                # group exceeds the pool: unpinned per-page access, the
-                # compute path will fall back to the host
                 return [self.pool.access(model, pid) for pid in page_ids]
         return [self.pool.access(model, pid) for pid in page_ids]
 
@@ -552,52 +556,41 @@ class WeightServer:
 
     # ------------------------------------------------- device (HBM) path --
     def _device_map(self, model: str, tensor: str):
+        """The tensor's map into the slab, -1 where a page is not
+        resident (the compute entry points stage those pages)."""
         vt = self.store.virtual_tensor(model, tensor)
-        dev_map = self.device_pool.remap(vt, key=(model, tensor))
-        return vt, dev_map
+        return vt, self.device_pool.remap(vt, key=(model, tensor),
+                                          strict=False)
 
     def device_gather_rows(self, model: str, tensor: str, rows,
                            pad: bool = False, pages=None):
         """[n, width] rows of the tensor gathered straight from the HBM
-        slab via the dedup-embedding kernel path; None when the required
-        pages are not resident (the engine then falls back to the host in
-        the CPU modes and raises in cuda mode).
-
-        ``pages``: the page set covering ``rows`` (what the caller just
-        faulted).  When given, only those pages must be resident — the
-        working set may exceed the slab as long as each batch fits; when
-        omitted, the tensor's whole page set must be resident."""
+        slab via the dedup-embedding kernel path.  Pages the pool did not
+        leave resident (a batch larger than the slab) are written into
+        the slab's staging tail and read from there by the same kernel.
+        ``pages`` (the page set covering ``rows``) routes a sharded
+        server; the single slab reads the map."""
         self._sync_store()
-        vt = self.store.virtual_tensor(model, tensor)
-        if pages is not None:
-            if not self.device_pool.pages_resident(pages):
-                return None
-            dev_map = self.device_pool.remap(vt, key=(model, tensor),
-                                             strict=False)
-        else:
-            dev_map = self.device_pool.remap(vt, key=(model, tensor))
-            if dev_map is None:
-                return None
-        return self.device_pool.gather_rows(dev_map, vt.grid, rows, pad=pad)
+        vt, dev_map = self._device_map(model, tensor)
+        return self.device_pool.gather_rows(dev_map, vt.grid, rows, pad=pad,
+                                            block_map=vt.block_map)
 
     def device_matmul(self, model: str, tensor: str, x):
-        """``x @ W_virtual`` through dedup_matmul against the slab; None
-        when the tensor's pages are not all resident."""
+        """``x @ W_virtual`` through dedup_matmul against the slab (its
+        non-resident pages through the staging tail, in K ranges)."""
         self._sync_store()
         vt, dev_map = self._device_map(model, tensor)
-        if dev_map is None:
-            return None
-        return self.device_pool.virtual_matmul(dev_map, vt.grid, x)
+        return self.device_pool.virtual_matmul(dev_map, vt.grid, x,
+                                               block_map=vt.block_map)
 
     def device_tensor(self, model: str, tensor: str):
-        """Whole tensor reassembled on device from resident slab blocks
-        (LM model-switch path: no host densification); None when not all
-        pages are resident."""
+        """Whole tensor reassembled on device from slab blocks (LM
+        model-switch path: no host densification); its non-resident
+        pages come through the staging tail."""
         self._sync_store()
         vt, dev_map = self._device_map(model, tensor)
-        if dev_map is None:
-            return None
-        return self.device_pool.unblock(dev_map, vt.grid)
+        return self.device_pool.unblock(dev_map, vt.grid,
+                                        block_map=vt.block_map)
 
 
 # ------------------------------------------------------- embedding serving --
@@ -771,9 +764,10 @@ class EmbeddingServingEngine(_PrefetchingEngine):
                      rows=int(docs.size)) as csp:
             if self.server.backend == "device" and not degraded:
                 # Hot path: the batch's token rows come straight off the
-                # resident slab through the dedup kernel path — no unique/
-                # scatter bookkeeping, no host materialization of any weight.
+                # slab through the dedup kernel path — no unique/scatter
+                # bookkeeping, no host materialization of any weight.
                 flat = docs.reshape(-1)
+                tail_calls = self.server.device_pool.tail_calls
                 try:
                     emb = self.server.device_gather_rows(
                         model, self.embed_tensor, flat, pad=True,
@@ -783,12 +777,7 @@ class EmbeddingServingEngine(_PrefetchingEngine):
                         raise
                     emb = None
                     self.stats.degraded_batches += 1
-                if emb is None:
-                    if not self.server.host_fallback_allowed():
-                        raise RuntimeError(
-                            f"batch of {model!r}: its pages are not all "
-                            f"resident on the slab, and cuda mode does not "
-                            f"fall back to the host")
+                if emb is None:            # degraded: the host computes it
                     self.stats.dense_fallbacks += 1
                 else:
                     emb = emb[:flat.size].reshape(docs.shape
@@ -802,7 +791,13 @@ class EmbeddingServingEngine(_PrefetchingEngine):
                         logits = _tok_logits(
                             emb, self._head_dev(model, emb)
                         ).to(torch.float32).cpu().numpy()
-                    self.stats.device_batches += 1
+                    # a batch the slab could not hold went through its
+                    # staging tail: counted where the reference counts
+                    # its host fallback
+                    if self.server.device_pool.tail_calls > tail_calls:
+                        self.stats.dense_fallbacks += 1
+                    else:
+                        self.stats.device_batches += 1
             csp.set(device=logits is not None)
             if logits is None:
                 rows = np.unique(docs)
@@ -904,11 +899,13 @@ class LMServingEngine(_PrefetchingEngine):
 
         On the device backend the model switch never densifies on the
         host: the page working set is faulted into the device slab and
-        each tensor is reassembled *on the device* from resident slab
-        blocks (``WeightServer.device_tensor``).  The CPU kernel modes
-        fall back to host materialization when the slab cannot hold the
-        working set or the fetch fails past its retry budget, as the
-        reference does; cuda mode raises instead."""
+        each tensor is reassembled *on the device* from slab blocks
+        (``WeightServer.device_tensor``).  A working set the slab cannot
+        hold comes through its staging tail, counted in
+        ``dense_fallbacks`` and charged as the reference's host
+        materialization.  The CPU kernel modes degrade to host
+        materialization when the fetch fails past its retry budget, as
+        the reference does; cuda mode raises instead."""
         if self._resident_model == model and \
                 self.server.store.packing_current(self._params_gen):
             return 0.0
@@ -918,19 +915,15 @@ class LMServingEngine(_PrefetchingEngine):
                                model=model, grouped=grouped) as sp:
             if self.server.backend == "device":
                 pages = self.server.store.model_pages(model)
+                tail_calls = self.server.device_pool.tail_calls
                 try:
                     if grouped:
                         fetch_t = self.server.access_pages_grouped(model,
                                                                    pages)
                     else:
                         fetch_t = self.server.access_pages(model, pages)
-                    tensors = {}
-                    for name in names:
-                        dt = self.server.device_tensor(model, name)
-                        if dt is None:
-                            tensors = None
-                            break
-                        tensors[name] = dt
+                    tensors = {name: self.server.device_tensor(model, name)
+                               for name in names}
                 except StorageFaultError:
                     # in the CPU modes degrade this model switch to host
                     # materialization (fresh retry budget); on the card,
@@ -940,16 +933,17 @@ class LMServingEngine(_PrefetchingEngine):
                     self.stats.degraded_batches += 1
                     fetch_t = self.server._charge_faults()
                     tensors = None
-                if tensors is None:
-                    if not self.server.host_fallback_allowed():
-                        raise RuntimeError(
-                            f"model switch to {model!r}: its pages are not "
-                            f"all resident on the slab, and cuda mode does "
-                            f"not fall back to the host")
+                if tensors is None:        # degraded: host materialization
                     self.stats.dense_fallbacks += 1
                     tensors = {name: self.server.store.materialize(model,
                                                                    name)
                                for name in names}
+                    fetch_t += self.server._charge_faults()
+                elif self.server.device_pool.tail_calls > tail_calls:
+                    # the slab could not hold the switch: its tensors came
+                    # through the staging tail, counted and charged as the
+                    # reference's host materialization
+                    self.stats.dense_fallbacks += 1
                     fetch_t += self.server._charge_faults()
                 else:
                     self.stats.device_batches += 1

@@ -31,8 +31,11 @@ shards instead of thrashing that slab (DESIGN.md §5):
 
 :class:`ShardedWeightServer` packages this behind the
 :class:`~repro_torch.serving.engine.WeightServer` surface the engines
-drive.  Like the single slab, it never moves a batch to the host in cuda
-mode: a borrow set the staging tail cannot hold raises there.
+drive.  Like the single slab, it never moves a batch to the host because
+of a slab's size: an owned group a shard cannot hold, or a borrow set
+larger than ``borrow_capacity``, is served through the overflow rows at
+the end of the executing shard's tail (``DevicePagePool.overflow_rows``),
+in chunks that each fit, where the reference computes on the host.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ import torch
 from ..core.bufferpool import BufferPool
 from ..core.store import ModelStore, VirtualTensor
 from ..obs import get_tracer
-from .device_pool import DevicePagePool
+from .device_pool import DevicePagePool, tail_size
 from .engine import ServeStats, StorageModel, WeightServer
 from .router import RouteDecision, ShardRouter
 
@@ -199,12 +202,16 @@ class ShardedPagePool:
         devs = list(devices) if devices else []
         # stage_rows: each shard's slab carries a borrow-staging TAIL
         # past its resident slots, so extended remaps read one stable
-        # buffer — no per-compute-call slab concatenation.
+        # buffer — no per-compute-call slab concatenation — and past the
+        # borrows ``tail_pages`` overflow rows for the pages a batch
+        # needs that neither the shard nor its borrows hold.
+        self.tail_pages = tail_size(self.capacity_per_shard)
         self.pools: List[DevicePagePool] = [
             DevicePagePool(store, self.capacity_per_shard,
                            kernel_mode=kernel_mode,
                            device=devs[s % len(devs)] if devs else None,
-                           stage_rows=self.borrow_capacity)
+                           stage_rows=self.borrow_capacity + self.tail_pages,
+                           overflow_rows=self.tail_pages)
             for s in range(self.num_shards)]
         self._staged: List[Dict[int, int]] = [dict()
                                               for _ in range(self.num_shards)]
@@ -484,21 +491,22 @@ class ShardedPagePool:
             self.tail_reads[op] += 1
 
     def gather_rows(self, shard: int, dev_map, grid, rows, pad: bool = False,
-                    uses_extra: bool = False):
+                    uses_extra: bool = False, block_map=None):
         self._count_tail_read("gather_rows", uses_extra)
         return self._unpin(shard, self.pools[shard].gather_rows(
-            dev_map, grid, rows, pad=pad))
+            dev_map, grid, rows, pad=pad, block_map=block_map))
 
     def virtual_matmul(self, shard: int, dev_map, grid, x,
-                       uses_extra: bool = False):
+                       uses_extra: bool = False, block_map=None):
         self._count_tail_read("virtual_matmul", uses_extra)
         return self._unpin(shard, self.pools[shard].virtual_matmul(
-            dev_map, grid, x))
+            dev_map, grid, x, block_map=block_map))
 
-    def unblock(self, shard: int, dev_map, grid, uses_extra: bool = False):
+    def unblock(self, shard: int, dev_map, grid, uses_extra: bool = False,
+                block_map=None):
         self._count_tail_read("unblock", uses_extra)
         return self._unpin(shard, self.pools[shard].unblock(
-            dev_map, grid))
+            dev_map, grid, block_map=block_map))
 
     # ----------------------------------------------------------- reporting --
     @property
@@ -512,6 +520,11 @@ class ShardedPagePool:
     @property
     def evicts(self) -> int:
         return sum(p.evicts for p in self.pools)
+
+    @property
+    def tail_calls(self) -> int:
+        """Compute calls served through a shard's overflow rows."""
+        return sum(p.tail_calls for p in self.pools)
 
     def resident_pages(self) -> Set[int]:
         out: Set[int] = set()
@@ -659,8 +672,9 @@ class ShardedWeightServer(WeightServer):
 
     ``capacity_pages`` is PER SHARD (one device's slab), so adding shards
     adds aggregate capacity.  ``kernel_mode`` and ``devices`` go to every
-    shard's :class:`DevicePagePool`; in cuda mode a page group or a borrow
-    set that does not fit raises (:meth:`host_fallback_allowed`).
+    shard's :class:`DevicePagePool`; a page group or a borrow set that
+    does not fit is served through the shard's overflow rows
+    (``device_pool.tail_size`` of them), never on the host.
     """
 
     def __init__(self, store: ModelStore, capacity_pages: int,
@@ -776,14 +790,13 @@ class ShardedWeightServer(WeightServer):
 
     def _access_owned(self, model: str, route: RouteDecision) -> List[bool]:
         """The routed shard's owned pages, pinned as a group like the
-        single-slab server's; a group the shard cannot hold raises in
-        cuda mode and goes unpinned in the CPU modes."""
+        single-slab server's; a group the shard cannot hold goes
+        unpinned (its pages the shard did not keep are then served
+        through the shard's overflow rows)."""
         bp = self.sharded.buffer_pools[route.shard]
         try:
             return bp.access_group(model, list(route.owned))
         except ValueError:
-            if not self.host_fallback_allowed():
-                raise
             return [bp.access(model, p) for p in route.owned]
 
     def access_pages(self, model: str, page_ids) -> float:
@@ -835,7 +848,8 @@ class ShardedWeightServer(WeightServer):
         """Run the borrow protocol for a routed batch's minority pages;
         returns the virtual seconds charged to the fetch channel
         (owner-side storage faults + shard->tail interconnect copies).
-        A borrow set the staging tail cannot hold raises in cuda mode."""
+        A borrow set the staging tail cannot hold is charged as the
+        reference charges it, and served through the overflow rows."""
         tr = get_tracer()
         with tr.span("borrow_stage", kind="borrow", shard=route.shard,
                      pages=len(route.borrowed)) as sp:
@@ -847,15 +861,9 @@ class ShardedWeightServer(WeightServer):
             else:
                 sp.set(refused=True)
         if res is None:
-            if not self.host_fallback_allowed():
-                raise RuntimeError(
-                    f"shard {route.shard}: {len(route.borrowed)} borrowed "
-                    f"pages exceed the staging tail of "
-                    f"{self.sharded.borrow_capacity}, and cuda mode does not "
-                    f"fall back to the host")
-            # Oversized borrow set in a CPU mode: compute falls back to
-            # the host — which still has to READ those pages, so charge
-            # them as storage misses.
+            # Oversized borrow set: compute reads those pages through the
+            # overflow rows (the reference, on the host) — it still has
+            # to READ them, so charge them as storage misses.
             n = len(route.borrowed)
             if grouped:
                 t = self.storage.fetch_group_seconds(self.page_bytes, n)
@@ -921,6 +929,9 @@ class ShardedWeightServer(WeightServer):
         return out
 
     # ------------------------------------------------- device (HBM) path --
+    # The extended map leaves a hole (-1) where a page is neither
+    # resident on the routed shard nor staged there; the shard's pool
+    # serves those through its overflow rows.
     def device_gather_rows(self, model: str, tensor: str, rows,
                            pad: bool = False, pages=None):
         self._sync_store()
@@ -928,43 +939,30 @@ class ShardedWeightServer(WeightServer):
         route = self._resolve_route(pages if pages is not None
                                     else vt.page_ids)
         s = route.shard
-        staged = self.sharded.staged(s)
-        if any(p not in staged for p in route.borrowed):
-            return None
-        if not self.sharded.pools[s].pages_resident(route.owned):
-            return None
         dev_map, uses_extra = self.sharded.remap(
-            s, vt, key=(model, tensor), strict=pages is None)
-        if dev_map is None:
-            return None
+            s, vt, key=(model, tensor), strict=False)
         return self.sharded.gather_rows(s, dev_map, vt.grid, rows, pad=pad,
-                                        uses_extra=uses_extra)
+                                        uses_extra=uses_extra,
+                                        block_map=vt.block_map)
 
     def _device_map_sharded(self, model: str, tensor: str):
         vt = self.store.virtual_tensor(model, tensor)
-        route = self._resolve_route(vt.page_ids)
-        s = route.shard
-        staged = self.sharded.staged(s)
-        if any(p not in staged for p in route.borrowed) \
-                or not self.sharded.pools[s].pages_resident(route.owned):
-            return vt, s, None, False
+        s = self._resolve_route(vt.page_ids).shard
         dev_map, uses_extra = self.sharded.remap(s, vt,
                                                  key=(model, tensor),
-                                                 strict=True)
+                                                 strict=False)
         return vt, s, dev_map, uses_extra
 
     def device_matmul(self, model: str, tensor: str, x):
         self._sync_store()
         vt, s, dev_map, uses_extra = self._device_map_sharded(model, tensor)
-        if dev_map is None:
-            return None
         return self.sharded.virtual_matmul(s, dev_map, vt.grid, x,
-                                           uses_extra=uses_extra)
+                                           uses_extra=uses_extra,
+                                           block_map=vt.block_map)
 
     def device_tensor(self, model: str, tensor: str):
         self._sync_store()
         vt, s, dev_map, uses_extra = self._device_map_sharded(model, tensor)
-        if dev_map is None:
-            return None
         return self.sharded.unblock(s, dev_map, vt.grid,
-                                    uses_extra=uses_extra)
+                                    uses_extra=uses_extra,
+                                    block_map=vt.block_map)

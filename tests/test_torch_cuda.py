@@ -535,15 +535,29 @@ def test_lm_engine_cuda_matches_torch_mode(cuda_device):
 
 
 def test_lm_engine_cuda_mode_raises_without_room(cuda_device):
-    """A slab too small for a variant's page set raises in cuda mode
-    instead of materializing on the host."""
-    store, names, apis, _, templates = _lm_setup()
-    server = WeightServer(store, 2, storage=StorageModel("dram"),
-                          kernel_mode="cuda")
-    engine = LMServingEngine(server, apis, templates)
-    with pytest.raises((RuntimeError, ValueError)):
-        engine.generate(names[0], np.ones((1, 8), np.int32), steps=2)
-    assert engine.stats.dense_fallbacks == 0
+    """A slab too small for a variant's page set no longer raises in cuda
+    mode, and never materializes on the host: the switch comes through
+    the staging tail (counted in ``dense_fallbacks``, as the reference
+    counts its host fallback), with torch mode's tokens at that slab."""
+    store, names, apis, plain, templates = _lm_setup()
+
+    def refuse(*a, **k):
+        raise AssertionError("materialized on the host")
+    prompts = np.ones((1, 8), np.int32)
+    out = {}
+    for mode, a in (("cuda", apis), ("torch", plain)):
+        server = WeightServer(store, 2, storage=StorageModel("dram"),
+                              kernel_mode=mode, device=cuda_device)
+        engine = LMServingEngine(server, a, templates)
+        store.materialize = refuse
+        try:
+            out[mode] = engine.generate(names[0], prompts, steps=2)[0]
+        finally:
+            del store.materialize
+        assert engine.stats.dense_fallbacks == 1
+        assert engine.stats.device_batches == 0
+        assert server.device_pool.tail_calls > 0
+    np.testing.assert_array_equal(out["cuda"], out["torch"])
 
 
 #: the reference's three shapes, the LM stores' (64x64 blocks, 64 hashes,
@@ -709,6 +723,66 @@ def _sharded_server(store, kernel_mode, placement="hash", **kw):
                                devices=shard_devices(2, kernel_mode), **kw)
 
 
+@pytest.mark.parametrize("tail", [None, 1])
+def test_staging_tail_chunks_match_torch_mode(cuda_device, monkeypatch,
+                                              tail):
+    """Past the slab (a quarter of the store, below each batch's pages),
+    cuda mode serves every batch through the staging tail -- at the
+    default tail, and at a 1-page tail a page a chunk -- with torch
+    mode's logits (1e-5) and pool decisions, one ``dedup_embedding``
+    launch a chunk; the FFNN-shaped product past the slab within 1e-4 of
+    numpy in K ranges."""
+    from repro_torch.serving import device_pool
+    if tail is not None:
+        monkeypatch.setattr(device_pool, "TAIL_PAGES", tail)
+    store, heads, batches = _sharded_scenario()
+    cap = store.num_pages() // 4
+    runs = {}
+    for km in ("torch", "cuda"):
+        srv = WeightServer(store, cap, storage=StorageModel("dram"),
+                           kernel_mode=km, device=cuda_device)
+        engine = EmbeddingServingEngine(srv, heads, scheduler="fifo",
+                                        overlap=True)
+        n0 = ops.LAUNCHES["dedup_embedding"]
+        out = []
+        for model, docs in batches:
+            engine.submit(model, docs)
+            engine.run(max_batches=1)
+            out.append(engine.last_logits.copy())
+        pool = srv.device_pool
+        runs[km] = (out, engine.stats.dense_fallbacks, pool.loads,
+                    pool.evicts, pool.tail_calls, pool.tail_chunks,
+                    ops.LAUNCHES["dedup_embedding"] - n0)
+    for a, b in zip(runs["torch"][0], runs["cuda"][0]):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+    assert runs["cuda"][1:6] == runs["torch"][1:6]
+    assert runs["cuda"][1] == runs["cuda"][4] == len(batches)
+    assert runs["cuda"][6] == runs["cuda"][5]
+    assert runs["torch"][6] == 0
+    # the product: W [640, 200] over 32x32 blocks, a third of its pages
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((640, 200)).astype(np.float32)
+    x = rng.standard_normal((16, 640)).astype(np.float32)
+    from repro_torch.core import (DedupConfig, LSHConfig, ModelStore,
+                                  StoreConfig)
+    fstore = ModelStore(StoreConfig(
+        dedup=DedupConfig(block_shape=(32, 32),
+                          lsh=LSHConfig(num_bands=8, rows_per_band=2, r=4.0,
+                                        collision_threshold=6),
+                          validate=False),
+        blocks_per_page=4))
+    fstore.register("f", {"W": w})
+    cap = max(1, len(fstore.model_pages("f")) // 3)
+    srv = WeightServer(fstore, cap, storage=StorageModel("dram"),
+                       kernel_mode="cuda", device=cuda_device)
+    srv.access_pages("f", fstore.model_pages("f"))
+    n0 = ops.LAUNCHES["dedup_matmul"]
+    y = srv.device_matmul("f", "W", x).cpu().numpy()
+    np.testing.assert_allclose(y, x @ w, rtol=1e-4, atol=1e-4)
+    assert ops.LAUNCHES["dedup_matmul"] - n0 == srv.device_pool.tail_chunks
+    assert srv.device_pool.tail_calls == 1
+
+
 def test_sharded_cuda_serving_matches_host(cuda_device):
     """2 shards in cuda mode serve the host-mode sharded run's logits
     (1e-5), with its routes and borrow counters exactly; under hash the
@@ -744,16 +818,25 @@ def test_sharded_cuda_serving_matches_host(cuda_device):
 
 
 def test_sharded_cuda_mode_raises_on_an_oversized_borrow_set(cuda_device):
-    """A borrow set the staging tail cannot hold raises in cuda mode; it
-    is never served on the host."""
+    """A borrow set the staging tail cannot hold no longer raises in cuda
+    mode, and is never served on the host: it goes through the shard's
+    overflow rows, with the host-mode run's logits (1e-5) and counters."""
     store, heads, batches = _sharded_scenario()
-    srv = _sharded_server(store, "cuda", borrow_capacity=1)
-    engine = EmbeddingServingEngine(srv, heads, scheduler="fifo")
-    for model, docs in batches:
-        engine.submit(model, docs)
-    with pytest.raises(RuntimeError, match="staging tail"):
-        engine.run()
-    assert engine.stats.dense_fallbacks == 0
+    runs = {}
+    for km in ("host", "cuda"):
+        srv = _sharded_server(store, km, borrow_capacity=1)
+        engine = EmbeddingServingEngine(srv, heads, scheduler="fifo")
+        out = []
+        for model, docs in batches:
+            engine.submit(model, docs)
+            engine.run(max_batches=1)
+            out.append(engine.last_logits.copy())
+        runs[km] = (out, engine.stats.dense_fallbacks,
+                    engine.stats.device_batches, srv.sharded.tail_calls)
+    for a, b in zip(runs["host"][0], runs["cuda"][0]):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+    assert runs["cuda"][1:] == runs["host"][1:]
+    assert runs["cuda"][1] > 0 and runs["cuda"][3] == runs["cuda"][1]
 
 
 def test_sharded_transfer_snapshot_resolves_device_seconds(cuda_device):

@@ -337,10 +337,14 @@ def test_overlap_prestages_next_batch(kernel_mode):
 @pytest.mark.parametrize("trigger", ["oversized_group", "not_resident",
                                      "storage_fault"])
 def test_only_cpu_modes_fall_back_to_the_host(monkeypatch, trigger):
-    """A batch the slab cannot serve goes to the host in the CPU modes
-    (the reference's fallback, counted) and raises in cuda mode, where
-    the slab is on the card.  ``host_fallback_allowed`` is forced false
-    here to stand for cuda mode on the CPU."""
+    """Only a batch whose access fails past its retry budget goes to the
+    host, in the CPU modes (the reference's degrade, counted); in cuda
+    mode, where the slab is on the card, it raises.  A batch the slab
+    cannot hold -- a page group larger than the pool, or pages the pool
+    left non-resident -- is served on the slab's device through its
+    staging tail in every mode, counted in ``dense_fallbacks`` as the
+    reference counts its host fallback.  ``host_fallback_allowed`` is
+    forced false here to stand for cuda mode on the CPU."""
     from repro_torch.storage.faults import StorageFaultError
     task, store, heads, _, _ = _scenarios(vocab=1024)
     docs, _ = task.sample(16, variant=0, seed=7)
@@ -355,8 +359,8 @@ def test_only_cpu_modes_fall_back_to_the_host(monkeypatch, trigger):
         server = _port(store, cap, "torch")
         assert server.host_fallback_allowed()
         if trigger == "not_resident":
-            monkeypatch.setattr(server, "device_gather_rows",
-                                lambda *a, **k: None)
+            monkeypatch.setattr(server.pool, "access_group",
+                                lambda m, pids: [True] * len(pids))
         elif trigger == "storage_fault":
             def fail(*a, **k):
                 raise StorageFaultError("injected: retry budget spent")
@@ -366,7 +370,7 @@ def test_only_cpu_modes_fall_back_to_the_host(monkeypatch, trigger):
                                 lambda: False)
         engine = EmbeddingServingEngine(server, heads)
         engine.submit(model, docs)
-        if on_card:
+        if on_card and trigger == "storage_fault":
             with pytest.raises((RuntimeError, ValueError)):
                 engine.run(max_batches=1)
             assert engine.stats.batches == 0
@@ -375,6 +379,8 @@ def test_only_cpu_modes_fall_back_to_the_host(monkeypatch, trigger):
         assert engine.stats.device_batches == 0
         assert engine.stats.dense_fallbacks \
             + engine.stats.degraded_batches == 1
+        assert server.device_pool.tail_calls \
+            == (trigger != "storage_fault")
         np.testing.assert_allclose(engine.last_logits, want, atol=1e-5)
     pool = _port(store, 2, "torch").device_pool
     monkeypatch.setattr(pool, "mode", lambda: "cuda")

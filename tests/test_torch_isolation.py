@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and
-its copies of the JAX package's framework-free modules cannot drift.
+"""The port stands alone: it imports neither jax nor the JAX package (nor
+do ``chip_smoke.py`` and the port's examples and scripts,
+``examples/torch_*.py`` and ``scripts/torch_*.py``), and its copies of
+the JAX package's framework-free modules cannot drift.
 
 The copies (obs, storage, core with compress and finetune, configs, the
 scheduler, prefetcher, traffic generator, paged KV cache, request
@@ -68,8 +70,14 @@ def _bad_imports(path: Path):
 
 
 def test_port_and_smoke_import_no_jax_and_no_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "examples").glob("torch_*.py")) \
+        + sorted((ROOT / "scripts").glob("torch_*.py"))
     assert len(files) > 30
+    assert {f.name for f in files} >= {
+        "torch_quickstart.py", "torch_multi_model_serving.py",
+        "torch_finetune_dedup.py", "torch_train_tiny.py",
+        "torch_run_lints.py", "torch_trace_report.py"}
     bad = [b for f in files for b in _bad_imports(f)]
     assert bad == []
     code = ("import sys, repro_torch, repro_torch.launch.serve, "

@@ -736,8 +736,9 @@ def test_stacked_slab_lowers_with_named_sharding(jax_db):
 # ------------------------------------------------------- the CPU-only rule --
 def test_cuda_and_auto_modes_refuse_without_a_card(jax_db):
     """No silent CPU fallback: with no card, ``auto`` raises, as the
-    single slab does.  The CPU modes keep the reference's host fallback
-    for a borrow set the tail cannot hold."""
+    single slab does.  A borrow set the tail cannot hold is served
+    through the shard's overflow rows, counted where the reference
+    counts its host fallback."""
     url = jax_db(2048, 4)
     _, store = _open_both(url)
     if not torch.cuda.is_available():
@@ -750,7 +751,8 @@ def test_cuda_and_auto_modes_refuse_without_a_card(jax_db):
                               kernel_mode="torch")
     engine = EmbeddingServingEngine(srv, heads)
     got = _run(engine, _docs(task, 4, 4, 16))
-    assert engine.stats.dense_fallbacks > 0           # the host served them
+    assert engine.stats.dense_fallbacks > 0     # the overflow rows served them
+    assert srv.sharded.tail_calls == engine.stats.dense_fallbacks
     for (model, docs), logits in zip(_docs(task, 4, 4, 16), got):
         emb = store.materialize(model, "embedding")
         np.testing.assert_allclose(logits, emb[docs].mean(axis=1)
