@@ -66,6 +66,7 @@ from ..core.device_index import DeviceModelStore
 from ..core.lsh import estimate_r
 from ..data.pipeline import SyntheticTextTask
 from ..kernels import ops
+from ..obs.wall import WallClock
 from ..serving.device_pool import KERNEL_MODES
 from ..serving.engine import (EmbeddingServingEngine, LMServingEngine,
                               ServeStats, StorageModel, WeightServer)
@@ -289,7 +290,9 @@ def _print_traffic(spec: TrafficSpec, fe: ServingFrontend,
 def _make_tracer(args, clock=None):
     """(tracer, activation-CM) for --trace; (None, no-op CM) otherwise.
     Binding the frontend's virtual clock lets the exporter carry the
-    per-channel conservation proof in ``otherData``."""
+    per-channel conservation proof in ``otherData``; the direct path
+    passes a ``WallClock``, so its spans are the wall seconds the work
+    took."""
     if not getattr(args, "trace", None):
         return None, contextlib.nullcontext()
     from ..obs import Tracer, use_tracer
@@ -484,7 +487,7 @@ def serve_embedding(args) -> tuple:
                                        seed=args.seed + 100 + b)
             engine.submit(name, docs)
         clock = None
-        tracer, activate = _make_tracer(args)
+        tracer, activate = _make_tracer(args, WallClock())
         with activate:
             stats = engine.run()
     _print_stats(args, stats, server, engine)
@@ -544,7 +547,7 @@ def serve_lm(args) -> tuple:
             prompts = rng.integers(1, 64, size=(2, 8)).astype(np.int32)
             engine.submit(name, prompts, steps=args.lm_steps)
         clock = None
-        tracer, activate = _make_tracer(args)
+        tracer, activate = _make_tracer(args, WallClock())
         tokens = []
         with activate:
             while engine.scheduler.pending():
@@ -669,9 +672,10 @@ def main(argv=None):
                          "chrome://tracing or ui.perfetto.dev), '.jsonl' "
                          "= one flat span dict per line (feed to "
                          "scripts/trace_report.py).  Timestamps are "
-                         "virtual-clock microseconds; with --traffic the "
-                         "per-channel span time is asserted equal to the "
-                         "clock's channel ledger before writing")
+                         "virtual-clock microseconds with --traffic, where "
+                         "the per-channel span time is asserted equal to "
+                         "the clock's channel ledger before writing, and "
+                         "wall-clock microseconds without it")
     ap.add_argument("--report-json", default=None, metavar="PATH",
                     help="dump a MetricsRegistry snapshot of every stats "
                          "surface (serve/server/recovery/prefetch/clock "

@@ -29,6 +29,7 @@ from torch.distributed.tensor import Replicate
 
 from ..distributed.sharding import (from_local, is_dtensor, local,
                                     parallel_dims, shard_placements)
+from ..obs import get_tracer
 from .layers import causal_conv1d, dot, rms_norm
 
 F32 = torch.float32
@@ -61,50 +62,52 @@ def ssd_chunked(xh, dt, A, Bm, Cm, Dp, chunk: int,
     R = H // G                                   # heads per group
     Q = min(chunk, S)
     pad = (-S) % Q
-    if pad:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
     nc = (S + pad) // Q
+    with get_tracer().span("ssd_chunked", kind="model", chunks=nc):
+        if pad:
+            xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+            dt = F.pad(dt, (0, 0, 0, pad))
+            Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+            Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
 
-    state = torch.zeros((B, H, hd, N), dtype=F32, device=xh.device) \
-        if state0 is None else state0
-    Af = A.to(F32)
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                 device=xh.device))
-    ys = []
-    for c in range(nc):
-        sl = slice(c * Q, (c + 1) * Q)
-        xf = xh[:, sl].to(F32)
-        dtq = dt[:, sl].to(F32)
-        Bq, Cq = Bm[:, sl].to(F32), Cm[:, sl].to(F32)
-        dA = dtq * Af                            # [B,Q,H]
-        cum = torch.cumsum(dA, dim=1)            # inclusive cumsum
-        # intra-chunk: h_i += sum_{j<=i} e^{cum_i-cum_j} dt_j B_j x_j.  exp
-        # overflows to inf above the diagonal: select, never multiply by
-        # the mask (inf * 0 = nan)
-        diff = cum[:, :, None, :] - cum[:, None, :, :]      # [B,Q,Q,H]
-        L = torch.where(mask[None, :, :, None], torch.exp(diff),
-                        torch.zeros((), dtype=F32, device=xh.device))
-        CB = torch.einsum("bqgn,bpgn->bqpg", Cq, Bq)         # [B,Q,Q,G]
-        CB = torch.repeat_interleave(CB, R, dim=3)           # [B,Q,Q,H]
-        W = CB * L * dtq[:, None, :, :]                      # weight for x_j
-        y_diag = torch.einsum("bqph,bphd->bqhd", W, xf)
-        # inter-chunk: h_i also carries e^{cum_i} * S_in
-        Cq_h = torch.repeat_interleave(Cq, R, dim=2)         # [B,Q,H,N]
-        y_off = torch.einsum("bqhn,bhdn->bqhd", Cq_h, state)
-        y_off = y_off * torch.exp(cum)[:, :, :, None]
-        ys.append(y_diag + y_off)
-        # state update: S_out = e^{cum_Q} S_in
-        #                       + sum_j e^{cum_Q-cum_j} dt_j B_j (x) x_j
-        decay_to_end = torch.exp(cum[:, -1:, :] - cum)       # [B,Q,H]
-        Bq_h = torch.repeat_interleave(Bq, R, dim=2)         # [B,Q,H,N]
-        contrib = torch.einsum("bqh,bqhd,bqhn->bhdn", decay_to_end * dtq,
-                               xf, Bq_h)
-        state = torch.exp(cum[:, -1, :])[:, :, None, None] * state + contrib
-    y = torch.cat(ys, dim=1)[:, :S]
-    y = y + Dp.to(F32)[None, None, :, None] * xh[:, :S].to(F32)
+        state = torch.zeros((B, H, hd, N), dtype=F32, device=xh.device) \
+            if state0 is None else state0
+        Af = A.to(F32)
+        mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                     device=xh.device))
+        ys = []
+        for c in range(nc):
+            sl = slice(c * Q, (c + 1) * Q)
+            xf = xh[:, sl].to(F32)
+            dtq = dt[:, sl].to(F32)
+            Bq, Cq = Bm[:, sl].to(F32), Cm[:, sl].to(F32)
+            dA = dtq * Af                            # [B,Q,H]
+            cum = torch.cumsum(dA, dim=1)            # inclusive cumsum
+            # intra-chunk: h_i += sum_{j<=i} e^{cum_i-cum_j} dt_j B_j x_j.
+            # exp overflows to inf above the diagonal: select, never
+            # multiply by the mask (inf * 0 = nan)
+            diff = cum[:, :, None, :] - cum[:, None, :, :]      # [B,Q,Q,H]
+            L = torch.where(mask[None, :, :, None], torch.exp(diff),
+                            torch.zeros((), dtype=F32, device=xh.device))
+            CB = torch.einsum("bqgn,bpgn->bqpg", Cq, Bq)         # [B,Q,Q,G]
+            CB = torch.repeat_interleave(CB, R, dim=3)           # [B,Q,Q,H]
+            W = CB * L * dtq[:, None, :, :]                   # weight for x_j
+            y_diag = torch.einsum("bqph,bphd->bqhd", W, xf)
+            # inter-chunk: h_i also carries e^{cum_i} * S_in
+            Cq_h = torch.repeat_interleave(Cq, R, dim=2)         # [B,Q,H,N]
+            y_off = torch.einsum("bqhn,bhdn->bqhd", Cq_h, state)
+            y_off = y_off * torch.exp(cum)[:, :, :, None]
+            ys.append(y_diag + y_off)
+            # state update: S_out = e^{cum_Q} S_in
+            #                       + sum_j e^{cum_Q-cum_j} dt_j B_j (x) x_j
+            decay_to_end = torch.exp(cum[:, -1:, :] - cum)       # [B,Q,H]
+            Bq_h = torch.repeat_interleave(Bq, R, dim=2)         # [B,Q,H,N]
+            contrib = torch.einsum("bqh,bqhd,bqhn->bhdn", decay_to_end * dtq,
+                                   xf, Bq_h)
+            state = torch.exp(cum[:, -1, :])[:, :, None, None] * state \
+                + contrib
+        y = torch.cat(ys, dim=1)[:, :S]
+        y = y + Dp.to(F32)[None, None, :, None] * xh[:, :S].to(F32)
     return y, state
 
 

@@ -467,16 +467,11 @@ class DevicePagePool:
         staged = n and (bmap2d[rbs] < 0).any()
         if staged and block_map is None:
             return None
-        with get_tracer().span("kernel", kind="kernel", op="gather_rows",
-                               mode=self._mode, rows=n,
-                               staged=bool(staged)) as sp:
-            if not staged:
-                out = self._gather(bmap2d, ids, width)
-            else:
-                chunks = self.tail_chunks
-                out = self._gather_staged(bmap2d, block_map.reshape(gh, gw),
-                                          ids, rbs, width)
-                sp.set(chunks=self.tail_chunks - chunks)
+        if not staged:
+            out = self._gather(bmap2d, ids, width)
+        else:
+            out = self._gather_staged(bmap2d, block_map.reshape(gh, gw),
+                                      ids, rbs, width)
         return out if pad or self._mode == "host" else out[:n]
 
     def _gather_staged(self, dev2d, phys2d, ids, rbs, width: int):
@@ -564,28 +559,25 @@ class DevicePagePool:
                         acc += xp[..., k * bh:(k + 1) * bh] \
                             @ blocks[m[k, j - j0]]
             return y[..., :N]
-        with get_tracer().span("kernel", kind="kernel",
-                               op="virtual_matmul", mode=mode,
-                               staged=staged):
-            x = torch.as_tensor(x, device=self.device)
-            if x.dtype not in (torch.float32, torch.bfloat16):
-                x = x.to(self.dtype)
-            pad = gh * bh - x.shape[-1]
-            if pad:
-                if x.shape[-1] != K:
-                    raise ValueError(f"x has {x.shape[-1]} features, the "
-                                     f"tensor has {K} rows")
-                x = torch.nn.functional.pad(x, (0, pad))
-            if not staged:
-                return self._matmul(x, bmap2d)[..., :N]
-            y = torch.zeros(x.shape[:-1] + (gw * bw,), dtype=torch.float32,
-                            device=self.device)
-            for ks, j0, j1, pages in pieces:
-                m = self._fill(bmap2d, phys2d, ks, j0, j1, pages)
-                k0, k1 = ks[0], ks[-1] + 1
-                y[..., j0 * bw:j1 * bw] += self._matmul(
-                    x[..., k0 * bh:k1 * bh], m[k0:k1]).float()
-            return y.to(x.dtype)[..., :N]
+        x = torch.as_tensor(x, device=self.device)
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            x = x.to(self.dtype)
+        pad = gh * bh - x.shape[-1]
+        if pad:
+            if x.shape[-1] != K:
+                raise ValueError(f"x has {x.shape[-1]} features, the "
+                                 f"tensor has {K} rows")
+            x = torch.nn.functional.pad(x, (0, pad))
+        if not staged:
+            return self._matmul(x, bmap2d)[..., :N]
+        y = torch.zeros(x.shape[:-1] + (gw * bw,), dtype=torch.float32,
+                        device=self.device)
+        for ks, j0, j1, pages in pieces:
+            m = self._fill(bmap2d, phys2d, ks, j0, j1, pages)
+            k0, k1 = ks[0], ks[-1] + 1
+            y[..., j0 * bw:j1 * bw] += self._matmul(
+                x[..., k0 * bh:k1 * bh], m[k0:k1]).float()
+        return y.to(x.dtype)[..., :N]
 
     def _matmul(self, x: torch.Tensor, bmap2d: np.ndarray) -> torch.Tensor:
         """``x @`` the blocks of ``bmap2d`` (x's width is its rows x bh)."""
@@ -608,22 +600,20 @@ class DevicePagePool:
         mode = self._mode
         gh, gw = grid.grid
         K, N = grid.shape2d
-        with get_tracer().span("kernel", kind="kernel", op="unblock",
-                               mode=mode, staged=staged):
-            if mode == "host":
-                from ..core.blocks import unblock_tensor
-                blocks = self._unblock_staged(dev_map, block_map, hole) \
-                    if staged else self._blocks(dev_map)
-                return unblock_tensor(blocks, grid)
-            if not staged:
-                W = ref.materialize_virtual(
-                    self.flat_pool(), self._put(dev_map.reshape(gh, gw)),
-                    K, N)
-            else:
-                W = ref.materialize_virtual(
-                    self._unblock_staged(dev_map, block_map, hole),
-                    self._put(np.arange(gh * gw).reshape(gh, gw)), K, N)
-            return W.reshape(grid.tensor_shape)
+        if mode == "host":
+            from ..core.blocks import unblock_tensor
+            blocks = self._unblock_staged(dev_map, block_map, hole) \
+                if staged else self._blocks(dev_map)
+            return unblock_tensor(blocks, grid)
+        if not staged:
+            W = ref.materialize_virtual(
+                self.flat_pool(), self._put(dev_map.reshape(gh, gw)),
+                K, N)
+        else:
+            W = ref.materialize_virtual(
+                self._unblock_staged(dev_map, block_map, hole),
+                self._put(np.arange(gh * gw).reshape(gh, gw)), K, N)
+        return W.reshape(grid.tensor_shape)
 
     def _blocks(self, idx: np.ndarray):
         """Slab blocks ``idx`` of the kernel view (the mirror's in host

@@ -911,19 +911,28 @@ class LMServingEngine(_PrefetchingEngine):
             return 0.0
         names = list(self.server.store.dedup.models[model].tensors)
         self._params = self._resident_model = None   # free the old model
-        with get_tracer().span("model_switch", kind="engine",
-                               model=model, grouped=grouped) as sp:
+        tr = get_tracer()
+        with tr.span("model_switch", kind="engine",
+                     model=model, grouped=grouped) as sp:
             if self.server.backend == "device":
                 pages = self.server.store.model_pages(model)
                 tail_calls = self.server.device_pool.tail_calls
                 try:
-                    if grouped:
-                        fetch_t = self.server.access_pages_grouped(model,
-                                                                   pages)
-                    else:
-                        fetch_t = self.server.access_pages(model, pages)
-                    tensors = {name: self.server.device_tensor(model, name)
-                               for name in names}
+                    with tr.span("switch_access", kind="engine",
+                                 pages=len(pages)) as asp:
+                        fetched = self.server.stats.pages_fetched
+                        if grouped:
+                            fetch_t = self.server.access_pages_grouped(
+                                model, pages)
+                        else:
+                            fetch_t = self.server.access_pages(model, pages)
+                        asp.set(misses=self.server.stats.pages_fetched
+                                - fetched)
+                    with tr.span("switch_assemble", kind="engine",
+                                 tensors=len(names)):
+                        tensors = {name: self.server.device_tensor(model,
+                                                                   name)
+                                   for name in names}
                 except StorageFaultError:
                     # in the CPU modes degrade this model switch to host
                     # materialization (fresh retry budget); on the card,
@@ -958,9 +967,10 @@ class LMServingEngine(_PrefetchingEngine):
                 for name in names:
                     tensors[name] = self.server.fetch_tensor(model, name)
                 fetch_t = self.server.stats.fetch_seconds - t0
+            with tr.span("switch_rebuild", kind="engine"):
+                self._params = self.templates[model]["rebuild"](
+                    tensors, device=self._param_device())
             sp.set(seconds=fetch_t, tensors=len(names))
-        self._params = self.templates[model]["rebuild"](
-            tensors, device=self._param_device())
         self._resident_model = model
         self._params_gen = self.server.store.pack_generation
         return fetch_t
@@ -1007,47 +1017,65 @@ class LMServingEngine(_PrefetchingEngine):
 
     # -- scheduler-driven serving -------------------------------------------
     def submit(self, model: str, prompts: np.ndarray, steps: int = 8) -> None:
-        pages = self.server.store.model_pages(model)
-        router = getattr(self.server, "router", None)
-        shard = router.route(pages, record=False).shard \
-            if router is not None else None
-        self.scheduler.submit(model, (prompts, steps), pages=pages,
-                              pages_gen=self.server.store.pack_generation,
-                              shard=shard)
+        with get_tracer().span("lm_submit", kind="engine", model=model,
+                               rows=len(prompts)) as sp:
+            pages = self.server.store.model_pages(model)
+            router = getattr(self.server, "router", None)
+            shard = router.route(pages, record=False).shard \
+                if router is not None else None
+            b = self.scheduler.submit(
+                model, (prompts, steps), pages=pages,
+                pages_gen=self.server.store.pack_generation, shard=shard)
+            sp.set(query=b.seq)
 
     def run(self, max_batches: Optional[int] = None) -> ServeStats:
+        """Drain the scheduler.  Each batch is an ``lm_batch`` span (the
+        query's ``seq`` as ``query``) holding ``lm_schedule``, ``lm_load``
+        around the call to ``_load_model`` and ``lm_compute`` around the
+        call to ``_compute``; the rest of it is the engine's host work."""
         tr = get_tracer()
         n = 0
         while self.scheduler.pending():
-            batch = self.scheduler.next_batch(
-                self.server.pool.resident_pages())
-            if batch is None:
-                break
-            if tr.enabled:
-                tr.event("schedule", kind="policy",
-                         policy=self.scheduler.name, model=batch.model)
-            prompts, steps = batch.payload
-            snap = self._transfer_snap()
-            fetch_t = self._load_model(batch.model, grouped=self.overlap)
-            if self.prefetcher is not None:
-                self.prefetcher.note_demand(
-                    self.server.store.model_pages(batch.model))
-            self._prestage_next()       # next model's pages ∥ this compute
-            out, compute_t = self._compute(batch.model, prompts, steps)
-            self.last_tokens = out
-            self._add_transfer_delta(snap)
-            if self.overlap:
-                issue, done = self.timeline.advance(fetch_t, compute_t)
-                self.stats.latencies.append(done - issue)
-                self.stats.timeline_seconds = self.timeline.makespan
-            else:
-                self.stats.latencies.append(fetch_t + compute_t)
-            self.stats.fetch_latencies.append(fetch_t)
-            self.stats.fetch_seconds += fetch_t
-            self.stats.compute_seconds += compute_t
-            self.stats.requests += len(prompts)
-            self.stats.batches += 1
-            self._maybe_prefetch()
+            with tr.span("lm_batch", kind="engine") as bsp:
+                with tr.span("lm_schedule", kind="engine") as ssp:
+                    batch = self.scheduler.next_batch(
+                        self.server.pool.resident_pages())
+                    if batch is not None:
+                        ssp.set(model=batch.model)
+                if batch is None:
+                    break
+                if tr.enabled:
+                    tr.event("schedule", kind="policy",
+                             policy=self.scheduler.name, model=batch.model)
+                prompts, steps = batch.payload
+                bsp.set(model=batch.model, rows=len(prompts),
+                        query=batch.seq)
+                snap = self._transfer_snap()
+                with tr.span("lm_load", kind="engine", model=batch.model):
+                    fetch_t = self._load_model(batch.model,
+                                               grouped=self.overlap)
+                if self.prefetcher is not None:
+                    self.prefetcher.note_demand(
+                        self.server.store.model_pages(batch.model))
+                self._prestage_next()   # next model's pages ∥ this compute
+                with tr.span("lm_compute", kind="engine", rows=len(prompts),
+                             tokens=prompts.shape[1]):
+                    out, compute_t = self._compute(batch.model, prompts,
+                                                   steps)
+                self.last_tokens = out
+                self._add_transfer_delta(snap)
+                if self.overlap:
+                    issue, done = self.timeline.advance(fetch_t, compute_t)
+                    self.stats.latencies.append(done - issue)
+                    self.stats.timeline_seconds = self.timeline.makespan
+                else:
+                    self.stats.latencies.append(fetch_t + compute_t)
+                self.stats.fetch_latencies.append(fetch_t)
+                self.stats.fetch_seconds += fetch_t
+                self.stats.compute_seconds += compute_t
+                self.stats.requests += len(prompts)
+                self.stats.batches += 1
+                self._maybe_prefetch()
             n += 1
             if max_batches and n >= max_batches:
                 break
