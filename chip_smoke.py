@@ -36,7 +36,12 @@ capability (9, 0) and the CUDA toolkit (``nvcc``).  Phases, in order:
      ``[gather-shapes]`` line times ``dedup_embedding`` (both index
      instances, idx32 and idx64, forced) and ``flat_rows[idx]`` at the
      serving shape and at 65,536 ids over a 335 MB slab, each with its
-     byte bound and the share of it reached;
+     byte bound and the share of it reached; ``[split-dot]``: the exact
+     bf16 split of an fp32 operand (``split_bf16x3``) bit-equal to its
+     plain version, and ``dot``'s split3 route as close to float64 as
+     SPLIT_ERR_LIMIT times the FFMA GEMM (TF32 off), a limit that two
+     controls (x0 alone, x0 + x1) fail, at the benchmark cells' ``wo``
+     shapes, each piece timed beside the FFMA GEMM;
   4. serving — the main path: the word2vec scenario at d = 300 (vocab
      32,768, 4 variants, 64x64 blocks, 8 blocks a page) committed to
      SQLite through ``DedupDB``, reopened live and served through the
@@ -410,6 +415,116 @@ def bound_ms(nbytes: float, flops: float, flop_per_s=FP32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------- split dot --
+#: the benchmark cells' ``wo`` products: (label, rows, K = N)
+SPLIT_SHAPES = (("deepseek-7b", 16384, 4096), ("hymba-1.5b", 16384, 1600))
+#: the split3 route's relative Frobenius distance from the float64 product,
+#: at most this many times the FFMA GEMM's.  Read on the H100 (two seeds
+#: alike): the route 3.86 (deepseek) and 2.26 (hymba) times FFMA's, the
+#: same GEMM over x0 + x1 alone 11.4 and 15.2 times, over x0 alone 2,895
+#: and 4,634 times; over the parts laid [x0 | x1 | x2] it read 19 and 12
+SPLIT_ERR_LIMIT = 6.0
+
+
+def rel_err(y, exact):
+    """||y - exact|| / ||exact|| (Frobenius), ``exact`` in float64."""
+    return float((y.double() - exact).norm() / exact.norm())
+
+
+def split_dot_phase(torch, ops, ref):
+    """``split_bf16x3`` and ``dot``'s split3 route at SPLIT_SHAPES: the
+    kernel bit-equal to its plain version (inf, NaN and zeros in the
+    first row); the route's distance from the float64 product within
+    SPLIT_ERR_LIMIT times the FFMA GEMM's, and the same check failing
+    two controls over the same split (the GEMM over x0 alone and over
+    x0 + x1); the device times of the split (kernel, plain version, the
+    chain of torch casts), of the whole route and of the FFMA GEMM it
+    replaces.  Returns the deepseek shape's record."""
+    from repro_torch.models import layers
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    f32 = torch.float32
+    recs = []
+    for label, M, K in SPLIT_SHAPES:
+        x = torch.randn(M, K, device=dev, generator=g)
+        x[0, :4] = torch.tensor([float("inf"), float("nan"), 0.0, -0.0])
+        w = (torch.randn(K, K, device=dev, generator=g) * 0.02).bfloat16()
+        n0 = ops.LAUNCHES["split_bf16x3"]
+        got = ops.split_bf16x3(x)
+        want = ref.split_bf16x3(x)
+        torch.cuda.synchronize()
+        if ops.LAUNCHES["split_bf16x3"] != n0 + 1 or not torch.equal(
+                got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"[split-dot] {label}: split_bf16x3 is not "
+                                 f"bit-equal to its plain version")
+        del want
+        x[0, :2] = 0.0
+        if layers.dot_route(x, w) != "split3":
+            raise AssertionError(f"[split-dot] {label}: dot_route "
+                                 f"{layers.dot_route(x, w)}")
+        exact = x.double() @ w.double()
+        s = ops.split_bf16x3(x)                         # [x2 | x1 | x0]
+        with layers._fp32_reduction():
+            errs = dict(
+                route=rel_err(layers.dot(x, w), exact),
+                ffma=rel_err(torch.matmul(x, w.to(f32)), exact),
+                x0_only=rel_err(torch.mm(s[:, 2 * K:], w, out_dtype=f32),
+                                exact),
+                x0_x1=rel_err(torch.mm(s[:, K:], torch.cat([w, w]),
+                                       out_dtype=f32), exact))
+        del exact, s
+        ratio = {k: v / errs["ffma"] for k, v in errs.items()}
+        if ratio["route"] > SPLIT_ERR_LIMIT:
+            raise AssertionError(f"[split-dot] {label}: the split3 route is "
+                                 f"{ratio['route']:.3g} times as far from "
+                                 f"float64 as the FFMA GEMM (limit "
+                                 f"{SPLIT_ERR_LIMIT})")
+        if min(ratio["x0_only"], ratio["x0_x1"]) <= SPLIT_ERR_LIMIT:
+            raise AssertionError(f"[split-dot] {label}: a control passes the "
+                                 f"limit: {ratio}")
+
+        def chain():
+            x0 = x.bfloat16()
+            r = x - x0.float()
+            x1 = r.bfloat16()
+            return torch.cat([(r - x1.float()).bfloat16(), x1, x0], dim=1)
+
+        t = dict(split_ms=graph_ms(torch, lambda: ops.split_bf16x3(x)),
+                 plain_ms=graph_ms(torch, lambda: ref.split_bf16x3(x), 5, 5),
+                 cast_chain_ms=graph_ms(torch, chain, 5, 5),
+                 route_ms=graph_ms(torch, lambda: layers.dot(x, w), 5, 5),
+                 ffma_ms=graph_ms(torch, lambda: torch.matmul(x, w.to(f32)),
+                                  5, 5))
+        nbytes = M * K * (4 + 3 * 2)
+        b_ms, b_by = bound_ms(nbytes, 0)
+        flops = 2 * M * K * K
+        rec = dict(kernel="split_bf16x3", shape=label, variant="one pass",
+                   max_abs_err=0.0, route_rel_err=errs["route"],
+                   ffma_rel_err=errs["ffma"],
+                   route_err_over_ffma=ratio["route"],
+                   x0_x1_err_over_ffma=ratio["x0_x1"],
+                   x0_only_err_over_ffma=ratio["x0_only"],
+                   kernel_ms=t["split_ms"], library_ms=t["cast_chain_ms"],
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                   route_tflops=flops / t["route_ms"] * 1e-9,
+                   ffma_tflops=flops / t["ffma_ms"] * 1e-9, **t,
+                   shapes=f"x [{M}, {K}] fp32 . w [{K}, {K}] bf16")
+        log(f"[split-dot] {label} x[{M},{K}] fp32 . w[{K},{K}] bf16: "
+            + " ".join(f"{k}={v:.4f}" for k, v in t.items())
+            + f" bound_ms={b_ms:.4f} ({b_by}) route_tflops="
+            f"{rec['route_tflops']:.1f} ffma_tflops="
+            f"{rec['ffma_tflops']:.1f} rel_err vs float64: "
+            + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+            + " over ffma: " + " ".join(f"{k}={v:.2f}" for k, v in
+                                         ratio.items() if k != "ffma")
+            + f" (limit {SPLIT_ERR_LIMIT}) split bit-equal")
+        log(json.dumps({"phase": "kernel-check", **rec}))
+        recs.append(rec)
+        del x, w
+        torch.cuda.empty_cache()
+    return recs[0]
 
 
 # ----------------------------------------------------------------- stores --
@@ -1455,6 +1570,10 @@ def lm_phase(torch, ops, ref, tmpdir):
     if bodies != {"wgmma": launches["flash_attention"], "fma": 0}:
         raise AssertionError(f"the LM prefill's flash_attention launches "
                              f"went to {bodies}, not all to the wgmma body")
+    if launches["split_bf16x3"] < LM_DEPTH * LM_BATCHES:
+        raise AssertionError(f"wo's split launched "
+                             f"{launches['split_bf16x3']} times, wanted "
+                             f">= {LM_DEPTH * LM_BATCHES}")
     prefill_ms, decode_ms = time_lm_steps(torch, engine,
                                           kernel_apis["lm-v1"],
                                           traffic[-1][1])
@@ -1478,7 +1597,8 @@ def lm_phase(torch, ops, ref, tmpdir):
     log(f"[lm-traffic] seconds={time.perf_counter() - t0:.1f}")
     return ({"flash_attention": flash, "lsh_signature": lsh_rec},
             {"flash_attention": launches["flash_attention"],
-             "lsh_signature": store_rec["lsh_launches"]}, traffic_launches,
+             "lsh_signature": store_rec["lsh_launches"],
+             "split_bf16x3": launches["split_bf16x3"]}, traffic_launches,
             (store, lm32))
 
 
@@ -1606,6 +1726,10 @@ def hybrid_phase(torch, ops, tmpdir):
             or bodies != {"wgmma": want, "fma": 0}:
         raise AssertionError(f"[lm-hybrid] flash_attention launches "
                              f"{bodies}, wanted {want} on the wgmma body")
+    if launches["split_bf16x3"] < want:
+        raise AssertionError(f"[lm-hybrid] wo's split launched "
+                             f"{launches['split_bf16x3']} times, wanted "
+                             f">= {want}")
     prefill_ms, decode_ms = time_lm_steps(torch, engine,
                                           kernel_apis["hy-v1"],
                                           traffic[-1][1])
@@ -3798,6 +3922,7 @@ def main() -> int:
     # ----------------------------------------------------- 3. kernels --
     recs = kernel_phase(torch, ops, ref, capacity * 8,
                         fstore.num_pages() * 8)
+    recs["split_bf16x3"] = split_dot_phase(torch, ops, ref)
 
     # ------------------------------------------- 4. serving (main path) --
     # each path's launches are counted in a window of its own: the
@@ -3985,6 +4110,8 @@ def main() -> int:
                             f"{csrc}/flash_attention.cu"),
         "lsh_signature": ("src/repro/kernels/lsh_signature.py:50",
                           f"{csrc}/lsh_signature.cu"),
+        "split_bf16x3": ("none: the exact bf16 split of dot's fp32 operand",
+                         f"{csrc}/split_bf16x3.cu"),
     }
     kernels = []
     for name, rec in recs.items():

@@ -47,6 +47,7 @@ KERNELS = {
                          _F, _F, _I, _I, _I, _I, _P]),
     "lsh_signature": ("lsh_signature",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+    "split_bf16x3": ("split_bf16x3", [_P, _P, _I, _I, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

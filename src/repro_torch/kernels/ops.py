@@ -15,6 +15,9 @@ hot path went through the kernel.  A kernel with two bodies also counts
 each body in :data:`VARIANT_LAUNCHES`; which body a call takes is decided
 by a pure function (:func:`matmul_plan`, :func:`flash_variant`,
 :func:`lsh_variant`, :func:`gather_index_bits`) that the CPU tests reach.
+``split_bf16x3`` is the one kernel that replaces no TPU kernel: the
+exact bf16 split of an fp32 operand that ``models.layers.dot`` multiplies
+on the tensor cores.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ __all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "reset_launches", "MatmulPlan",
            "matmul_plan", "flash_variant", "lsh_variant", "gather_index_bits",
            "dedup_matmul", "dedup_embedding",
            "dedup_embedding_striped", "flash_attention", "lsh_signature",
-           "ref"]
+           "split_bf16x3", "ref"]
 
 #: kernel name -> number of launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNELS}
@@ -385,4 +388,32 @@ def lsh_signature(blocks, proj, bias, r: float):
                  n, dim, nh, float(r), _VARIANTS[variant],
                  _stream(blocks.device))
     _launched("lsh_signature", err, variant)
+    return out
+
+
+# ------------------------------------------------------------ split_bf16x3 --
+def split_bf16x3(x):
+    """x [R, C] float32 -> its exact three-way bf16 split (see
+    :func:`ref.split_bf16x3`): [R, 3C], each row ``[x2 | x1 | x0]``, the
+    left operand of ``x @ w`` against ``w`` stacked three times.
+
+    On CUDA one launch reads x once and writes the three parts, bit-equal
+    to the plain version; x is contiguous float32."""
+    _no_grad_inputs("split_bf16x3", x)
+    if x.device.type == "cpu":
+        return ref.split_bf16x3(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"split_bf16x3: no kernel for {x.device}")
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"split_bf16x3: x {tuple(x.shape)} {x.dtype}; the "
+                         "kernel takes a 2-D float32 tensor")
+    _check_cuda("split_bf16x3", x)
+    R, C = x.shape
+    out = torch.empty((R, 3 * C), dtype=torch.bfloat16, device=x.device)
+    if x.numel() == 0:
+        return out
+    fn = _build.load("split_bf16x3")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), out.data_ptr(), R, C, _stream(x.device))
+    _launched("split_bf16x3", err)
     return out

@@ -114,3 +114,32 @@ def lsh_edges(blocks, proj, bias, r: float, tol: float = LSH_EDGE_TOL):
     everywhere else their signatures must be equal."""
     v = (blocks.double() @ proj.double() + bias.double()) / r
     return (v - torch.round(v)).abs() < tol
+
+
+def _bf16_bits(p):
+    """bfloat16 tensor of the 16-bit patterns ``p`` (int32, 0 .. 65535)."""
+    return (p - ((p & 0x8000) << 1)).to(torch.int16).view(torch.bfloat16)
+
+
+def split_bf16x3(x):
+    """x [R, C] float32 -> [R, 3C] bf16, each row ``[x2 | x1 | x0]``, the
+    three parts of x, smallest first: x0 + x1 + x2 == x.
+
+    Each part is what is left of x with its low 16 bits cut (toward
+    zero), so the sum is exact for every finite |x| >= 2**-110 and every
+    zero, and each part keeps x's sign; an inf or a NaN goes whole into
+    x0 (a NaN whose payload lay in the cut bits kept a NaN), the others
+    signed zeros."""
+    u = x.to(F32).contiguous().view(torch.int32)
+    cut = -65536                                        # 0xffff0000
+    sign = (u >> 16) & 0x8000
+    odd = (u & 0x7F800000) == 0x7F800000                # inf or NaN
+    r1 = x.to(F32) - (u & cut).view(F32)
+    v = r1.view(torch.int32)
+    r2 = r1 - (v & cut).view(F32)
+    h0 = ((u >> 16) & 0xFFFF) | torch.where(odd & ((u & 0xFFFF) != 0),
+                                            0x40, 0)
+    h1 = torch.where(odd, sign, ((v >> 16) & 0xFFFF) | sign)
+    h2 = torch.where(odd, sign,
+                     ((r2.view(torch.int32) >> 16) & 0xFFFF) | sign)
+    return torch.cat([_bf16_bits(h) for h in (h2, h1, h0)], dim=1)

@@ -6,7 +6,9 @@ Counterpart of ``repro.models.layers``, with the same conventions:
     reassembled on the device), per-layer params stacked on a leading
     layer axis or given as one dict a layer;
   * matrix products return fp32 (``preferred_element_type=F32`` in the
-    reference): bf16 operands are multiplied exactly and summed in fp32.
+    reference): bf16 operands are multiplied exactly and summed in fp32;
+    on the card an fp32 operand against a bf16 one is split exactly into
+    three bf16 parts and summed the same way (:func:`dot_route`).
 
 ``mlp`` calls the sharding ``hint`` at the reference's ``act_ff`` site
 (``distributed.sharding``: the identity unless a recipe is active and
@@ -14,6 +16,7 @@ the activation is a DTensor).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -23,6 +26,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 from ..distributed.sharding import (all_reduce, from_local, hint,
                                     is_dtensor, local, reshape, shard_range)
+from ..kernels import ops
 
 F32 = torch.float32
 
@@ -68,16 +72,91 @@ def _replicated(g):
         Replicate() if p.is_partial() else p for p in g.placements])
 
 
+#: the fewest rows of an fp32 activation that take the split3 route.  On
+#: the H100 a product of a few rows (a decode step's batch) is bound by
+#: the host's launches: the split route takes 89 us of host time a call
+#: against the FFMA GEMM's 33 us, and saves little device time (at 4
+#: rows 0.111 ms against 0.140 at K = N = 4,096, 0.016 against 0.021 at
+#: 1,600).  Run eagerly, FFMA is still the faster at 256 rows and
+#: K = N = 1,600 (0.048 ms against 0.093); from 512 rows on the split
+#: route is, at both widths (0.153 against 0.437, 0.077 against 0.112)
+SPLIT_MIN_ROWS = 512
+
+
+def dot_route(a, b) -> str:
+    """How :func:`dot` multiplies ``a`` and ``b``.
+
+    "split3": ``a`` fp32 (the activation) of at least
+    :data:`SPLIT_MIN_ROWS` rows and ``b`` bf16 and 2-D (the weight), both
+    plain CUDA tensors, neither needing a gradient: :func:`split3_dot`,
+    the sum of the same exact products as an fp32 GEMM, on the tensor
+    cores.  "fp32": every other product that promotes to fp32
+    (``torch.matmul`` in fp32; a DTensor takes :class:`LowPrecisionDot`
+    in fp32).  "bf16": a product in one low precision
+    (:class:`LowPrecisionDot`).  CPU tensors, operands that need a
+    gradient (training, the VJP), DTensors and products of fewer rows
+    keep the fp32 route: the split has no backward, is exact only
+    against a bf16 operand, and costs more than it saves on a few
+    rows."""
+    if torch.promote_types(a.dtype, b.dtype) != F32:
+        return "bf16"
+    if (a.dtype == F32 and b.dtype == torch.bfloat16 and b.dim() == 2
+            and a.device.type == b.device.type == "cuda"
+            and math.prod(a.shape[:-1]) >= SPLIT_MIN_ROWS
+            and not (is_dtensor(a) or is_dtensor(b))
+            and not (a.requires_grad or b.requires_grad)):
+        return "split3"
+    return "fp32"
+
+
+@contextlib.contextmanager
+def _fp32_reduction():
+    """cuBLAS's bf16 GEMMs with every reduction in fp32 (no split-K sum
+    in reduced precision) inside the block."""
+    m = torch.backends.cuda.matmul
+    prev = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction = prev
+
+
+def split3_dot(a, b):
+    """``a @ b`` of an fp32 ``a`` and a 2-D bf16 ``b``, in fp32, as one
+    bf16 GEMM: ``a`` is split exactly into three bf16 parts
+    (:func:`kernels.ops.split_bf16x3`, one pass) laid along K, smallest
+    first, ``b`` is stacked three times along K, and cuBLAS sums the
+    exact bf16 products in fp32.  The sum is the fp32 GEMM's, in another
+    order and with the tensor cores' accumulation, which cuts what falls
+    below the running sum's last bits: on the H100, at the benchmark
+    cells' ``wo`` products, its distance from float64 is 3.9 and 2.3
+    times the FFMA GEMM's, where the same GEMM over x0 + x1 alone reads
+    11 and 15 times.  On the CPU the plain split and the widened
+    ``mm.dtype`` compute the same."""
+    K, N = b.shape
+    a3 = ops.split_bf16x3(a.reshape(-1, K).contiguous())
+    with _fp32_reduction():
+        out = torch.mm(a3, torch.cat([b, b, b]), out_dtype=F32)
+    return out.reshape(*a.shape[:-1], N)
+
+
 def dot(a, b):
     """``a @ b`` with an fp32 result, operands promoted as jnp.matmul
-    promotes them.  A bf16 product is one ``torch.mm(..., out_dtype=F32)``
-    (:class:`LowPrecisionDot`, which carries the reference's gradient):
-    on the card it accumulates in fp32 inside cuBLAS, on the CPU its
-    operands are widened first (their products are exact in fp32, so the
-    sum is the same math).  DTensors take :class:`LowPrecisionDot` in
-    fp32 too, for its backward's all-reduce of partial sums."""
+    promotes them, by the route :func:`dot_route` picks.  A bf16 product
+    is one ``torch.mm(..., out_dtype=F32)`` (:class:`LowPrecisionDot`,
+    which carries the reference's gradient): on the card it accumulates
+    in fp32 inside cuBLAS, on the CPU its operands are widened first
+    (their products are exact in fp32, so the sum is the same math).  An
+    fp32 product is ``torch.matmul`` in fp32, or on the card, an fp32
+    activation of many rows against a bf16 weight with no gradient,
+    :func:`split3_dot`.  DTensors take :class:`LowPrecisionDot` in fp32
+    too, for its backward's all-reduce of partial sums."""
+    route = dot_route(a, b)
+    if route == "split3":
+        return split3_dot(a, b)
     dt = torch.promote_types(a.dtype, b.dtype)
-    if dt == F32 and not is_dtensor(a):
+    if route == "fp32" and not is_dtensor(a):
         return torch.matmul(a.to(F32), b.to(F32))
     a2 = reshape(a.to(dt), -1, a.shape[-1])
     out = LowPrecisionDot.apply(a2, b.to(dt))

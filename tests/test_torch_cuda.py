@@ -22,7 +22,11 @@ Sharded slab: the kernels at a block map into the staging tail as above;
 cuda-mode sharded logits 1e-5 of the host-mode sharded run, its routes
 and borrow counters exactly; LM tokens equal to torch mode.  The other
 families (fp32, reduced): prefill logits through the kernel route within
-1e-4 of the plain attention, greedy tokens equal.  Training: ``dot``'s
+1e-4 of the plain attention, greedy tokens equal.  The bf16 split of
+an fp32 operand: bit-equal to the plain version; ``dot``'s split3 route
+as close to the float64 product as SPLIT_ERR_LIMIT times the FFMA GEMM,
+a limit that the GEMMs over x0 alone and over x0 + x1 fail; a few rows
+keep the FFMA GEMM.  Training: ``dot``'s
 bf16 backward equal to the reference's VJP computed by hand; a bf16
 deepseek layer's gradients within cosine 0.99 of fp32's; each wrapper
 raises on a CUDA input that needs a gradient, launching nothing.
@@ -40,7 +44,7 @@ from repro_torch.db import DedupDB
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.serve import build_lm_store, build_store
 from repro_torch.launch.steps import value_and_grad
-from repro_torch.models import build
+from repro_torch.models import build, layers
 from repro_torch.models.layers import dot
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import (EmbeddingServingEngine,
@@ -444,6 +448,95 @@ def test_flash_attention_bf16_on_the_fma_body(cuda_device, monkeypatch):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=2e-2,
                                atol=2e-2)
+
+
+#: (rows, cols): 16-byte vectors (widths that are multiples of 8: the
+#: deepseek and hymba wo operands', 1000), one value a thread (36, 18, 7)
+SPLIT_CASES = [(64, 4096), (48, 1600), (5, 36), (7, 18), (3, 7), (1, 1000)]
+#: the split3 route's relative distance from float64, at most this many
+#: times the FFMA GEMM's (chip_smoke's SPLIT_ERR_LIMIT)
+SPLIT_ERR_LIMIT = 6.0
+
+
+@pytest.mark.parametrize("rows,cols", SPLIT_CASES)
+def test_split_bf16x3_bit_equal_to_plain(cuda_device, rows, cols):
+    """The kernel writes the plain version's bits (values over the exact
+    exponent range, zeros, inf and NaN), and the parts sum back to x."""
+    g = np.random.default_rng(rows * cols)
+    x = np.ldexp(g.uniform(1, 2, (rows, cols)) * g.choice([-1, 1],
+                                                          (rows, cols)),
+                 g.integers(-110, 127, (rows, cols))).astype(np.float32)
+    x.reshape(-1)[:4] = [0.0, -0.0, np.inf, np.nan][:x.size]
+    x = torch.from_numpy(x).to(cuda_device)
+    n0 = ops.LAUNCHES["split_bf16x3"]
+    got = ops.split_bf16x3(x)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["split_bf16x3"] == n0 + 1
+    want = ref.split_bf16x3(x)
+    assert got.shape == (rows, 3 * cols) and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    p = got.float()
+    total = (p[:, :cols] + p[:, cols:2 * cols]) + p[:, 2 * cols:]
+    fin = torch.isfinite(x)
+    assert torch.equal(total[fin].view(torch.int32),
+                       x[fin].view(torch.int32))
+
+
+def _rel_err(y, exact):
+    return float((y.double() - exact).norm() / exact.norm())
+
+
+@pytest.mark.parametrize("M,K,N", [(8192, 4096, 4096), (8192, 1600, 1600)])
+def test_dot_split3_route_within_fp32_summation_error(cuda_device, M, K, N):
+    """``dot`` of a CUDA fp32 activation of 2M rows and a bf16 weight takes
+    the split3 route (one split launch) and lands as close to the float64
+    product as SPLIT_ERR_LIMIT times the FFMA GEMM; the GEMMs over x0
+    alone and over x0 + x1 of the same split do not.  The shapes are the
+    benchmark cells' ``wo`` products: FFMA's own error depends on the
+    kernel cuBLAS picks for the shape (a quarter of it at N = 256)."""
+    g = torch.Generator(device=cuda_device).manual_seed(K)
+    a = torch.randn(2, M, K, device=cuda_device, generator=g)
+    b = (torch.randn(K, N, device=cuda_device, generator=g) * 0.02).bfloat16()
+    assert layers.dot_route(a, b) == "split3"
+    n0 = ops.LAUNCHES["split_bf16x3"]
+    got = dot(a, b)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["split_bf16x3"] == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (2, M, N)
+    exact = a.double() @ b.double()
+    ffma = _rel_err(torch.matmul(a, b.float()), exact)
+    assert _rel_err(got, exact) <= SPLIT_ERR_LIMIT * ffma
+    s = ops.split_bf16x3(a.reshape(-1, K))              # [x2 | x1 | x0]
+    with layers._fp32_reduction():
+        x0 = torch.mm(s[:, 2 * K:], b, out_dtype=torch.float32)
+        x01 = torch.mm(s[:, K:], torch.cat([b, b]), out_dtype=torch.float32)
+    for control in (x0, x01):
+        assert _rel_err(control.reshape(2, M, N), exact) \
+            > SPLIT_ERR_LIMIT * ffma
+
+
+def test_dot_of_a_few_rows_takes_no_split(cuda_device):
+    """A decode step's product (a few rows) keeps the FFMA GEMM: no split
+    launch, the same result as ``torch.matmul`` in fp32."""
+    a = torch.randn(4, 1, 256, device=cuda_device)
+    w = torch.randn(256, 64, device=cuda_device).bfloat16()
+    assert layers.dot_route(a, w) == "fp32"
+    n0 = ops.LAUNCHES["split_bf16x3"]
+    got = dot(a, w)
+    assert ops.LAUNCHES["split_bf16x3"] == n0
+    assert torch.equal(got, torch.matmul(a, w.float()))
+
+
+def test_dot_with_a_gradient_takes_no_split(cuda_device):
+    """Training's fp32 x bf16 products (operands that need a gradient)
+    stay on the fp32 route: no split launch, a gradient flows."""
+    a = torch.randn(layers.SPLIT_MIN_ROWS, 64, device=cuda_device,
+                    requires_grad=True)
+    w = torch.randn(64, 16, device=cuda_device).bfloat16()
+    n0 = ops.LAUNCHES["split_bf16x3"]
+    dot(a, w).sum().backward()
+    assert ops.LAUNCHES["split_bf16x3"] == n0
+    assert a.grad is not None
 
 
 def test_bf16_dot_accumulates_in_fp32(cuda_device):
@@ -960,6 +1053,7 @@ def test_kernel_wrappers_refuse_inputs_that_need_grad_on_the_card(
         "lsh_signature": lambda: ops.lsh_signature(
             blocks, torch.randn(64, 4, device=dev),
             torch.zeros(4, device=dev), 1.0),
+        "split_bf16x3": lambda: ops.split_bf16x3(blocks),
     }
     before = dict(ops.LAUNCHES)
     with pytest.raises(RuntimeError, match="requires grad"):

@@ -177,6 +177,7 @@ def _guard_calls():
         "flash_attention": lambda: ops.flash_attention(q, kv, kv),
         "lsh_signature": lambda: ops.lsh_signature(
             blocks, torch.randn(16, 4, generator=g), torch.zeros(4), 1.0),
+        "split_bf16x3": lambda: ops.split_bf16x3(blocks),
     }
 
 
