@@ -27,7 +27,7 @@ from typing import Callable, Dict, FrozenSet, Sequence
 import numpy as np
 import torch
 
-from portbench import weights
+from portbench import archs, weights
 from portbench.reference import Reference, flat_weights
 
 #: device memory the reference may take for its temporaries
@@ -51,14 +51,9 @@ def plan(traffic, seed: int) -> FrozenSet[int]:
 
 
 def block_rows(cfg: Dict, tokens: int) -> int:
-    """Rows a reference block holds within ``BUDGET_BYTES``: attention
-    scores and their softmax, the feed-forward's three activations, and
-    the scan's tiles (lag, decay, C.B and their product)."""
-    z = weights.dims(cfg)
-    per_row = 4 * (3 * z["H"] * tokens * tokens + 3 * tokens * z["f"])
-    if cfg["architecture"] == "hybrid":
-        per_row += 4 * 4 * 256 * tokens * z["nh"]
-    return max(1, int(BUDGET_BYTES // per_row))
+    """Rows a reference block holds within ``BUDGET_BYTES`` (the
+    architecture's ``block_rows``: its largest temporaries a row)."""
+    return archs.of(cfg).block_rows(cfg, tokens)
 
 
 def inputs(traffic, q) -> np.ndarray:

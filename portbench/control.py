@@ -35,13 +35,13 @@ def readings(root: Path, workload: str, seeds, seconds: float, device=None,
     control_gap, control_logit_err, ...}] for each seed; the engine is
     built once."""
     import torch
-    from portbench import check, harness, store
+    from portbench import archs, check, harness, store
     from portbench.traffic import Traffic
     device = device or torch.device("cuda", 0)
     bench_dir = root / "portbench"
     bench = harness.read_json(root / "BENCHMARK.json")
     cell = harness.cell_entry(bench, workload)
-    cfg = harness.read_json(bench_dir / "configs" / f"{cell['config']}.json")
+    cfg = archs.read_config(bench_dir, cell["config"])
     spec = harness.read_json(bench_dir / "traffic" / f"{cell['traffic']}.json")
     url, _ = store.ensure(root, cfg, device, index_mode, log,
                           cache=bench_dir / ".cache")

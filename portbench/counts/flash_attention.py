@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
-from portbench import weights
+from portbench import archs
 
 BYTES = 2
 
@@ -24,11 +24,10 @@ def visible_pairs(S: int, window: int) -> int:
 
 
 def calls(cfg: Dict, rows: int, tokens: int) -> List[Tuple[float, float]]:
-    """(operations, bytes) of each layer's call, in layer order."""
-    z = weights.dims(cfg)
-    H, K, hd = z["H"], z["K"], z["hd"]
+    """(operations, bytes) of each attention layer's call, in layer
+    order (the architecture's ``attention_layers``)."""
     out = []
-    for w in weights.windows(cfg):
+    for w, H, K, hd in archs.of(cfg).attention_layers(cfg):
         flops = 4.0 * hd * H * rows * visible_pairs(tokens, w)
         nbytes = float(BYTES * rows * tokens * hd * (2 * H + 2 * K))
         out.append((flops, nbytes))

@@ -1,6 +1,7 @@
 """One run of one cell: set-up, the measured window, the check.
 
-``run_cell`` finds the cell's files by name, opens (or builds) the
+``run_cell`` finds the cell's files by name (the configuration's
+architecture module under ``archs/`` too), opens (or builds) the
 configuration's store, builds the engine the way a user serves LM
 variants from the database (``DedupDB.open(url).serve_lm(...,
 compute_backend="device", kernel_mode="auto", scheduler="fifo")``, the
@@ -26,7 +27,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
-import importlib.util
 import json
 import subprocess
 import time
@@ -36,7 +36,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from portbench import check, store, weights
+from portbench import archs, check, load_module, store, weights
 from portbench.traffic import Traffic
 
 
@@ -91,48 +91,14 @@ def metrics_of(bench: Dict, cell: str, kind: str) -> List[Dict]:
             if "workloads" not in m or cell in m["workloads"]]
 
 
-def load_module(bench_dir: Path, kind: str, name: str):
-    """``<bench_dir>/<kind>/<name>.py`` as a module (names hold dots and
-    dashes, so by path)."""
-    path = bench_dir / kind / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"portbench.{kind}.{name.replace('.', '_').replace('-', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 # ------------------------------------------------------------- program --
 def model_config(cfg: Dict):
-    """The program's ``ModelConfig`` for a configuration file."""
-    from repro_torch.configs.base import ModelConfig, SSMConfig
+    """The program's ``ModelConfig`` for a configuration file (its
+    architecture's ``program_config``), its layers' windows held against
+    the configuration's."""
     from repro_torch.models.transformer import build_groups
-    if cfg["hidden_act"] != "silu" or cfg["tie_word_embeddings"]:
-        raise ValueError(f"{cfg['name']}: the harness maps a gated SiLU "
-                         f"feed-forward and an untied head")
-    kw = dict(name=cfg["name"], family=cfg["architecture"],
-              num_layers=cfg["num_hidden_layers"],
-              d_model=cfg["hidden_size"],
-              num_heads=cfg["num_attention_heads"],
-              kv_heads=cfg["num_key_value_heads"],
-              d_ff=cfg["intermediate_size"], vocab=cfg["vocab_size"],
-              head_dim=cfg["head_dim"], rope_theta=cfg["rope_theta"],
-              norm_eps=cfg["rms_norm_eps"], act="silu", gated_mlp=True,
-              dtype=cfg["torch_dtype"])
-    if cfg["architecture"] == "hybrid":
-        L = cfg["num_hidden_layers"]
-        if sorted(cfg["global_attn_idx"]) != sorted({0, L // 2, L - 1}):
-            raise ValueError(f"{cfg['name']}: the program's hybrid layers "
-                             f"are global at 0, L // 2 and L - 1")
-        kw.update(hybrid=True, sliding_window=cfg["attn_window_size"],
-                  window_pattern=-3,
-                  ssm=SSMConfig(d_state=cfg["mamba_d_state"],
-                                d_conv=cfg["mamba_d_conv"],
-                                expand=cfg["mamba_expand"],
-                                head_dim=cfg["ssd_head_dim"],
-                                n_groups=cfg["ssd_n_groups"]))
-    mc = ModelConfig(**kw)
-    got = list(build_groups(mc)[0].windows)
+    mc = archs.of(cfg).program_config(cfg)
+    got = [w for g in build_groups(mc) for w in g.windows]
     if got != weights.windows(cfg):
         raise ValueError(f"{cfg['name']}: the program's windows {got}, the "
                          f"configuration's {weights.windows(cfg)}")
@@ -269,7 +235,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     bench = read_json(root / "BENCHMARK.json")
     bench_dir = root / "portbench"
     cell = cell_entry(bench, workload)
-    cfg = read_json(bench_dir / "configs" / f"{cell['config']}.json")
+    cfg = archs.read_config(bench_dir, cell["config"])
     spec = read_json(bench_dir / "traffic" / f"{cell['traffic']}.json")
     sync = torch.cuda.synchronize if cuda else (lambda: None)
 

@@ -1,23 +1,26 @@
 """The plain forward that decides ``correct``: float32 PyTorch, no kernel,
 no cache, no batching across rows, and nothing of the program.
 
-It follows the published layer equations of the two families the
-benchmark runs, as the configuration files state them:
+Each architecture's module (``archs/<architecture>.py``) writes its
+forward from the pieces here, which follow the published layer equations
+as the configuration files state them:
 
-* ``dense`` (deepseek-llm-7b, the Llama layer): x += Wo attn(rope(Wq h),
-  rope(Wk h), Wv h); x += W2 (silu(W1 h) * W3 h), each h an RMSNorm of x
-  whose weight is 1 + scale; causal multi-head attention, rotary
-  embedding on the two halves of each head, an untied head applied to
-  the last position's final norm.
-* ``hybrid`` (Hymba as the configuration states it): attention (grouped
-  query heads; a sliding window outside ``global_attn_idx``) and a
-  Mamba-2 mixer read one norm of x, and x += (attn + mixer) / 2; then the
-  gated feed-forward as above.  The mixer: in_proj to z, x, B, C and dt;
-  a depthwise causal convolution and SiLU on x, B, C; dt = softplus(dt +
-  dt_bias), A = -exp(A_log); the scan h_t = exp(dt_t A) h_{t-1} + dt_t
-  B_t x_t, y_t = C_t h_t + D x_t, here in its quadratic form (the sum over
-  s <= t of C_t.B_s exp(sum of dt A over (s, t]) dt_s x_s), tiled over
-  query positions; then RMSNorm(y * silu(z)) and out_proj.
+* ``norm``: RMSNorm whose weight is 1 + scale;
+* ``attention``: causal multi-head attention with grouped query heads
+  (query head h reads key head h // (H / K)), rotary embedding on the two
+  halves of each head (``rope``), an optional sliding window;
+* ``mixer``: Mamba-2's mixer: in_proj to z, x, B, C and dt; a depthwise
+  causal convolution and SiLU on x, B, C; dt = softplus(dt + dt_bias),
+  A = -exp(A_log); the scan h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t,
+  y_t = C_t h_t + D x_t, here in its quadratic form (``ssd``: the sum
+  over s <= t of C_t.B_s exp(sum of dt A over (s, t]) dt_s x_s), tiled
+  over query positions; then RMSNorm(y * silu(z)) and out_proj;
+* ``mlp``: the gated feed-forward W2 (silu(W1 h) * W3 h);
+* ``head``: the final norm of the last positions and an untied head.
+
+``dense`` (deepseek-llm-7b, the Llama layer) is x += attn(norm(x)); x +=
+mlp(norm(x)); ``hybrid`` (Hymba) reads attention and the mixer off one
+norm of x, x += (attn + mixer) / 2, then the feed-forward.
 
 ``precision="fp8"`` is the control: every linear layer's operands are
 rounded to float8 e4m3 with an absmax scale per row of the activation and
@@ -28,10 +31,12 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from portbench import archs
 
 F32 = torch.float32
 FP8_MAX = 448.0                               # largest finite e4m3
@@ -63,21 +68,23 @@ def _fp8(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 class Reference:
     """Last-position logits of a configuration's model over rows of
-    tokens, from float32 weights ``w`` keyed as ``weights.leaf_specs``
-    names them (layer leaves stacked on axis 0)."""
+    tokens, from float32 weights ``w`` keyed by path as
+    ``weights.leaf_specs`` names them (layer leaves stacked on axis 0);
+    the architecture's ``forward`` puts the pieces together."""
 
     def __init__(self, cfg: Dict, w: Dict, precision: str = "fp32"):
         if precision not in ("fp32", "fp8"):
             raise ValueError(f"unknown precision {precision!r}")
         self.cfg, self.w, self.precision = cfg, w, precision
         self.eps = float(cfg["rms_norm_eps"])
-        L = cfg["num_hidden_layers"]
-        if cfg["architecture"] == "hybrid":
-            glob = set(cfg["global_attn_idx"])
-            self.windows = [0 if i in glob else cfg["attn_window_size"]
-                            for i in range(L)]
-        else:
-            self.windows = [0] * L
+        self.arch = archs.of(cfg)
+
+    def layer(self, prefix: Tuple[str, ...], i: int) -> Dict:
+        """{name: layer i's slice} of the leaves under ``prefix``
+        (``("blocks", "attn")``), named by the rest of their path."""
+        n = len(prefix)
+        return {"/".join(p[n:]): t[i] for p, t in self.w.items()
+                if p[:n] == prefix}
 
     # ---------------------------------------------------------- pieces --
     def linear(self, x, wt):
@@ -102,25 +109,27 @@ class Reference:
         a, b = x[..., :half], x[..., half:]
         return torch.cat([a * cos - b * sin, a * sin + b * cos], dim=-1)
 
-    def attention(self, h, i: int):
+    def attention(self, h, p: Dict, window: int):
+        """One layer's attention; ``p`` holds its ``wq``, ``wk``, ``wv``
+        and ``wo``; ``window`` 0 is global."""
         c = self.cfg
         B, S, _ = h.shape
         H, K, hd = (c["num_attention_heads"], c["num_key_value_heads"],
                     c["head_dim"])
-        q = self.rope(self.linear(h, self.w["wq"][i]).view(B, S, H, hd))
-        k = self.rope(self.linear(h, self.w["wk"][i]).view(B, S, K, hd))
-        v = self.linear(h, self.w["wv"][i]).view(B, S, K, hd)
+        q = self.rope(self.linear(h, p["wq"]).view(B, S, H, hd))
+        k = self.rope(self.linear(h, p["wk"]).view(B, S, K, hd))
+        v = self.linear(h, p["wv"]).view(B, S, K, hd)
         k = k.repeat_interleave(H // K, dim=2)       # query head h reads h // G
         v = v.repeat_interleave(H // K, dim=2)
         s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
         pos = torch.arange(S, device=h.device)
         lag = pos[:, None] - pos[None, :]
         seen = lag >= 0
-        if self.windows[i]:
-            seen &= lag < self.windows[i]
+        if window:
+            seen &= lag < window
         s = s.masked_fill(~seen, float("-inf"))
         o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
-        return self.linear(o.reshape(B, S, H * hd), self.w["wo"][i])
+        return self.linear(o.reshape(B, S, H * hd), p["wo"])
 
     def ssd(self, x, dt, A, Bm, Cm, D, tile: int = 256):
         """The scan's quadratic form.  x [B, S, nh, p]; dt [B, S, nh];
@@ -144,61 +153,50 @@ class Reference:
                                    xs[:, :t1]))
         return torch.cat(ys, dim=1) + D[:, None] * x
 
-    def mixer(self, h, i: int):
-        c, w = self.cfg, self.w
-        B, S, d = h.shape
-        din = c["mamba_expand"] * d
-        p, N, G = c["ssd_head_dim"], c["mamba_d_state"], c["ssd_n_groups"]
-        nh, gn = din // p, G * N
-        zxbcdt = self.linear(h, w["in_proj"][i])
+    def mixer(self, h, p: Dict, nh: int, hp: int, G: int, N: int):
+        """One layer's Mamba-2 mixer of ``nh`` heads of ``hp``, ``G``
+        groups of B and C of state ``N``; ``p`` holds its ``in_proj``,
+        ``conv_w`` [k, ch], ``conv_b``, ``dt_bias``, ``A_log``, ``Dp``,
+        ``ssm_norm`` and ``out_proj``."""
+        B, S, _ = h.shape
+        din, gn = nh * hp, G * N
+        zxbcdt = self.linear(h, p["in_proj"])
         z, xbc, dt = torch.split(zxbcdt, [din, din + 2 * gn, nh], dim=-1)
-        kw = w["conv_w"][i]                                  # [k, ch]
+        kw = p["conv_w"]
         k = kw.shape[0]
         xp = F.pad(xbc, (0, 0, k - 1, 0))
-        xbc = sum(kw[j] * xp[:, j:j + S] for j in range(k)) + w["conv_b"][i]
+        xbc = sum(kw[j] * xp[:, j:j + S] for j in range(k)) + p["conv_b"]
         xbc = F.silu(xbc)
         xs, Bm, Cm = torch.split(xbc, [din, gn, gn], dim=-1)
-        dt = F.softplus(dt + w["dt_bias"][i])
-        A = -torch.exp(w["A_log"][i])
-        y = self.ssd(xs.reshape(B, S, nh, p), dt, A, Bm.reshape(B, S, G, N),
-                     Cm.reshape(B, S, G, N), w["Dp"][i])
-        y = self.norm(y.reshape(B, S, din) * F.silu(z), w["ssm_norm"][i])
-        return self.linear(y, w["out_proj"][i])
+        dt = F.softplus(dt + p["dt_bias"])
+        A = -torch.exp(p["A_log"])
+        y = self.ssd(xs.reshape(B, S, nh, hp), dt, A, Bm.reshape(B, S, G, N),
+                     Cm.reshape(B, S, G, N), p["Dp"])
+        y = self.norm(y.reshape(B, S, din) * F.silu(z), p["ssm_norm"])
+        return self.linear(y, p["out_proj"])
 
-    def mlp(self, h, i: int):
-        w = self.w
-        return self.linear(F.silu(self.linear(h, w["w1"][i]))
-                           * self.linear(h, w["w3"][i]), w["w2"][i])
+    def mlp(self, h, p: Dict):
+        """The gated feed-forward; ``p`` holds ``w1``, ``w3`` and ``w2``."""
+        return self.linear(F.silu(self.linear(h, p["w1"]))
+                           * self.linear(h, p["w3"]), p["w2"])
+
+    def head(self, x, n_last: int):
+        """Logits of the last ``n_last`` positions of x."""
+        last = self.norm(x[:, -n_last:], self.w[("final_norm", "scale")])
+        return self.linear(last, self.w[("head",)])
 
     # ---------------------------------------------------------- forward --
-    def _rows(self, tokens: torch.Tensor, n_last: int) -> torch.Tensor:
-        w = self.w
-        x = w["embed"][tokens.long()]
-        for i in range(self.cfg["num_hidden_layers"]):
-            h = self.norm(x, w["ln1"][i])
-            if self.cfg["architecture"] == "hybrid":
-                x = x + 0.5 * (self.attention(h, i) + self.mixer(h, i))
-            else:
-                x = x + self.attention(h, i)
-            x = x + self.mlp(self.norm(x, w["ln2"][i]), i)
-        last = self.norm(x[:, -n_last:], w["final_norm"])
-        return self.linear(last, w["head"])
-
     def last_logits(self, tokens: torch.Tensor, block: int,
                     n_last: int = 1) -> torch.Tensor:
         """[n, S] token ids -> [n, n_last, V] float32 logits of the last
         ``n_last`` positions, ``block`` rows at a time."""
         with torch.no_grad(), no_tf32():
-            return torch.cat([self._rows(tokens[r:r + block], n_last)
+            return torch.cat([self.arch.forward(self, tokens[r:r + block],
+                                                n_last)
                               for r in range(0, tokens.shape[0], block)])
 
 
 def flat_weights(tree: Dict) -> Dict:
-    """The reference's keys from a ``weights.variant_weights`` variant:
-    the last part of each path (``blocks/attn/wq`` -> ``wq``; the norms
-    by their parent), in float32."""
-    out = {}
-    for path, t in tree.items():
-        key = path[-2] if path[-1] == "scale" else path[-1]
-        out[key] = t.to(F32)
-    return out
+    """The reference's weights from a ``weights.variant_weights`` variant:
+    each leaf in float32, keyed by its path."""
+    return {path: t.to(F32) for path, t in tree.items()}

@@ -5,7 +5,8 @@ Users build a deduplicated model database once (``register`` runs Alg. 1,
 many times.  The first run of a configuration in a checkout builds it
 into ``portbench/.cache/<config>-<digest>/``; every later run opens it.
 The digest covers the configuration (but its check limits), this file,
-``weights.py`` and the program's files that decide the store's bytes, so a change to any of
+``weights.py``, the configuration's architecture module (``archs/``) and
+the program's files that decide the store's bytes, so a change to any of
 them builds anew.  The build writes under ``<config>-<digest>.building``
 and renames the directory when the commit is done, so a run that is cut
 leaves no half store; an older digest of the same configuration is
@@ -23,7 +24,7 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
-from portbench import weights
+from portbench import archs, weights
 
 HERE = Path(__file__).resolve().parent
 CACHE = HERE / ".cache"
@@ -34,7 +35,8 @@ PROGRAM_FILES = ("convert.py", "db.py", "core", "storage", "kernels")
 def digest(root: Path, cfg: Dict) -> str:
     """Of the configuration but its ``check`` limits, and of the code
     that decides the store's bytes."""
-    files = [HERE / "store.py", HERE / "weights.py"]
+    files = [HERE / "store.py", HERE / "weights.py",
+             Path(archs.of(cfg).__file__)]
     port = root / "src" / "repro_torch"
     for name in PROGRAM_FILES:
         p = port / name

@@ -5,7 +5,7 @@ import re
 
 import pytest
 
-from conftest import ROOT
+from tiny import ROOT
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")

@@ -7,7 +7,7 @@ import torch
 from portbench import control
 
 
-@pytest.mark.parametrize("cell", ["tiny-d", "tiny-h"])
+@pytest.mark.parametrize("cell", ["tiny-d", "tiny-h", "tiny-m"])
 def test_the_control_fails_a_limit_the_program_passes(tiny_root, cell):
     import json
     from portbench import harness

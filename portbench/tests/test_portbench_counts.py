@@ -3,7 +3,7 @@ import json
 
 import pytest
 
-from conftest import DATA
+from tiny import DATA
 from portbench.counts import flash_attention as fa
 from portbench.counts import prefill
 
@@ -66,3 +66,21 @@ def test_prefill_flops_hybrid_adds_the_mixer():
     windows_diff = 4 * 16 * 4 * (300 - 164)     # layer 1 sees fewer pairs
     assert prefill.flops(cfg, 1, T) == pytest.approx(
         prefill.flops(dense, 1, T) + 4 * mixer - windows_diff)
+
+
+def test_counts_of_a_new_architecture_come_from_its_module(tiny_root):
+    # the toy MoE: d 64, 4 heads over 2 KV heads of 16; a dense first
+    # layer of d_ff 128, then 2 expert layers routing each token to 2 of
+    # 4 experts of 32; V 256; 1 row of 2 tokens
+    from portbench import archs
+    cfg = archs.read_config(tiny_root / "portbench", "tiny-moe")
+    T = 2
+    attn = (2 * T * 64 * (64 + 2 * 32)            # q, k, v
+            + 2 * T * 64 * 64                     # wo
+            + 4 * 16 * 4 * 3)                     # 3 visible pairs
+    dense = 2 * T * 3 * 64 * 128
+    moe = 2 * T * 64 * 4 + 2 * (2 * T * 3 * 64 * 32)    # router, 2 experts
+    assert prefill.flops(cfg, rows=1, tokens=T) == \
+        3 * attn + dense + 2 * moe + 2 * 64 * 256
+    assert fa.calls(cfg, rows=1, tokens=T) == [
+        (4 * 16 * 4 * 3, 2 * T * 16 * (2 * 4 + 2 * 2))] * 3

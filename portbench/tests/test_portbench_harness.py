@@ -11,14 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import ROOT, make_root, run_tiny
+from tiny import ROOT, make_root, run_tiny
 from portbench import store
 
 E2E = {"rows_per_s", "query_p95_ms", "setup_s"}
 LAYER = {"switch_ms", "compute_ms", "prefill_mfu", "device_idle_pct"}
 
 
-@pytest.mark.parametrize("cell", ["tiny-d", "tiny-h"])
+@pytest.mark.parametrize("cell", ["tiny-d", "tiny-h", "tiny-m"])
 def test_a_cell_added_as_files_runs_and_is_correct(tiny_root, cell):
     r = run_tiny(tiny_root, cell)
     assert r["correct"] is True and r["failed"] == 0 and r["attempted"] > 0
@@ -74,6 +74,16 @@ def test_store_built_once_then_opened(tmp_path):
                 if p.name.startswith("tiny-dense")]) == 1
 
 
+def test_a_traced_run_of_a_new_architecture_counts_its_operations(
+        tiny_root):
+    """The toy MoE, traced: its prefill operations come from its own
+    module; no device, so nothing reads a kernel's roofline."""
+    r = run_tiny(tiny_root, "tiny-m", trace=True, seconds=1.0)
+    assert r["correct"] is True
+    assert 0 < r["metrics"]["prefill_mfu"]["value"] < 105
+    assert "flash_attention_roofline" not in r["metrics"]
+
+
 def altered_token(engine_cls, monkeypatch):
     compute = engine_cls._compute
 
@@ -110,7 +120,7 @@ def shifted_logits(engine_cls, monkeypatch):
 
 @pytest.mark.parametrize("fault", [altered_token, half_the_rows,
                                    shifted_logits])
-@pytest.mark.parametrize("cell", ["tiny-d", "tiny-h"])
+@pytest.mark.parametrize("cell", ["tiny-d", "tiny-h", "tiny-m"])
 def test_a_program_at_fault_is_not_correct(tiny_root, monkeypatch, fault,
                                            cell):
     from repro_torch.serving.engine import LMServingEngine
@@ -149,13 +159,22 @@ def test_run_with_only_the_benchmarks_files_fails(tmp_path):
 @pytest.mark.cuda
 def test_a_cell_on_the_card(cuda_device, tiny_root):
     """On the card: the tiny cells through the CUDA kernels, correct."""
-    import time
-    from portbench import harness
-    r = harness.run_cell(tiny_root, "tiny-h", 3, 1.0, False,
-                         time.perf_counter(), device=cuda_device,
-                         log=lambda m: None)
+    r = run_tiny(tiny_root, "tiny-h", seed=3, seconds=1.0,
+                 device=cuda_device)
     assert r["correct"] and r["device"]["platform"] == "gpu"
     assert torch.cuda.max_memory_allocated() > 0
+
+
+@pytest.mark.cuda
+def test_a_new_architecture_traced_on_the_card(cuda_device, tiny_root):
+    """On the card: the toy MoE through ``flash_attention``, correct, its
+    step's share of the peak and the kernel's share of its roofline
+    read from its own module's counts, each within (0, 105] %."""
+    r = run_tiny(tiny_root, "tiny-m", seed=4, seconds=2.0, trace=True,
+                 device=cuda_device)
+    assert r["correct"] and r["device"]["platform"] == "gpu"
+    for m in ("prefill_mfu", "flash_attention_roofline"):
+        assert 0 < r["metrics"][m]["value"] <= 105
 
 
 @pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 5, 3 * 2 ** 40])

@@ -6,7 +6,7 @@ import sys
 
 import pytest
 
-from conftest import ROOT
+from tiny import ROOT
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 

@@ -8,7 +8,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from conftest import DATA
+from tiny import DATA
 from portbench import weights
 from portbench.reference import Reference, flat_weights, no_tf32
 
