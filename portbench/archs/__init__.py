@@ -20,7 +20,11 @@ An architecture module defines:
 * ``program_config(cfg)``: the program's ``ModelConfig``;
 * ``forward(ref, tokens, n_last)``: the plain forward of one variant, from
   ``ref.w`` keyed by path, to the last ``n_last`` positions' logits, in
-  ``ref``'s precision (``reference.py`` has the shared pieces);
+  ``ref``'s precision (``reference.py`` has the shared pieces); one that
+  routes picks each token's experts with ``ref.select(scores, k)``, on
+  the scores the program selects on, so that the check leaves out the
+  rows whose choice the float32 reference itself cannot make (``check``'s
+  ``tie_margin``);
 * ``block_rows(cfg, tokens)``: rows a reference block holds within
   ``check.BUDGET_BYTES``;
 * ``prefill_flops(cfg, rows, tokens)``: the model operations of one

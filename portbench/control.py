@@ -11,6 +11,10 @@ reference:
   e4m3 (the next precision below the configuration's bfloat16) put in
   the program's place, which the limits have to fail.
 
+Both are taken over the rows a run judges: those the float32
+reference's routing margin does not tie (``check.widest``); the record
+also gives the share tied and the widest logit errors over every row.
+
     python3 portbench/control.py --workload ds7b-2v-score \
         --seeds 101,102,103 [--out chiprun_out/control.json]
 
@@ -47,6 +51,7 @@ def readings(root: Path, workload: str, seeds, seconds: float, device=None,
                           cache=bench_dir / ".cache")
     engine, db = harness.make_engine(cfg, url, device, kernel_mode,
                                      index_mode)
+    tie_margin, _ = check.tie_rule(cfg)
     out = []
     try:
         for seed in seeds:
@@ -67,14 +72,19 @@ def readings(root: Path, workload: str, seeds, seconds: float, device=None,
                       if q.index in keep and q.logits is not None]
             r = check.readings(cfg, traffic, picked, device, ("fp32", "fp8"))
             p, c = r["fp32"], r["fp8"]
+            pg, pe, tied = check.widest(p, tie_margin)
+            cg, ce, _ = check.widest(c, tie_margin)
             rec = dict(seed=seed, queries=len(queries),
                        failed=len(queries) - len(done),
                        variants=sorted({q.variant for q in picked}),
                        rows=int(p["logit_err"].size),
-                       program_gap=float(p["gap"].max()),
-                       program_logit_err=float(p["logit_err"].max()),
-                       control_gap=float(c["gap"].max()),
-                       control_logit_err=float(c["logit_err"].max()),
+                       program_gap=pg, program_logit_err=pe,
+                       control_gap=cg, control_logit_err=ce,
+                       tied_share=tied,
+                       all_rows_program_logit_err=float(
+                           p["logit_err"].max()),
+                       all_rows_control_logit_err=float(
+                           c["logit_err"].max()),
                        program_flips=int((p["gap"] > 0).sum()),
                        control_flips=int((c["gap"] > 0).sum()))
             log(json.dumps(rec))
@@ -103,7 +113,8 @@ def main(argv=None) -> int:
                     [int(s) for s in args.seeds.split(",")], args.seconds,
                     log=lambda m: print(m, file=sys.stderr, flush=True))
     summary = dict(workload=args.workload,
-                   seconds=time.perf_counter() - T_START, seeds=recs)
+                   seconds=time.perf_counter() - T_START, seeds=recs,
+                   tied_share_highest=max(r["tied_share"] for r in recs))
     for n in ("gap", "logit_err"):
         summary[f"{n}_lower"] = max(r[f"program_{n}"] for r in recs)
         summary[f"{n}_upper"] = min(r[f"control_{n}"] for r in recs)

@@ -19,19 +19,29 @@ the kept logits against it (``check.py``).
 With ``trace`` the window runs under ``torch.profiler``, the engine's
 model switch and compute calls are timed (each ending in a device
 synchronize), and the host's phase is marked so that the device's idle
-time can be told by what the host was doing (``trace.py``).  Every metric
-is a reader in ``metrics/<name>.py``.
+time can be told by what the host was doing (``trace.py``).  The
+program's wall-clock tracer (``repro_torch.obs.wall.WallTracer``, with no
+profiler ranges of its own) is installed from the engine's build on, and
+its per-name span totals are read at the build, at the window's start and
+at its end: ``Run.setup_spans`` and ``Run.spans`` are the differences.
+Every metric is a reader in ``metrics/<name>.py``; a reader may name the
+program's counters it reads in ``COUNTERS`` (``"module:attr"``: a
+dictionary of numbers, a number or a 0-d tensor), which are read at the
+window's two ends, outside it, into ``Run.counters``.  An untraced run
+installs no tracer.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import gc
+import importlib
 import json
+import numbers
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +77,15 @@ class Run:
     switch_s: List[float] = dataclasses.field(default_factory=list)
     compute_s: List[float] = dataclasses.field(default_factory=list)
     trace: Optional[object] = None  # trace.Summary with --trace 1
+    #: the program's spans, {name: (count, seconds)}, over the window and
+    #: from the engine's build to the window (traced runs)
+    spans: Dict[str, Tuple[int, float]] = dataclasses.field(
+        default_factory=dict)
+    setup_spans: Dict[str, Tuple[int, float]] = dataclasses.field(
+        default_factory=dict)
+    #: {"module:attr": the window's difference} of the readers' COUNTERS
+    #: that resolved
+    counters: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     def done(self) -> List[Query]:
         return [q for q in self.queries if q.served is not None]
@@ -134,6 +153,73 @@ def power_limit() -> str:
         return out.stdout.strip().splitlines()[0]
     except (OSError, subprocess.SubprocessError, IndexError):
         return "unknown"
+
+
+# ------------------------------------------------- spans and counters --
+def span_delta(a: Dict, b: Dict) -> Dict[str, Tuple[int, float]]:
+    """{name: (count, seconds)} of the spans finished between two
+    snapshots of ``WallTracer.totals``."""
+    out = {}
+    for name, (n, sec) in b.items():
+        n0, s0 = a.get(name, (0, 0.0))
+        if n > n0:
+            out[name] = (n - n0, sec - s0)
+    return out
+
+
+def read_counter(name: str):
+    """A snapshot of ``"module:attr"``: {key: float} of a dictionary of
+    numbers, or a float of a number or a 0-d tensor; ``None`` where the
+    name does not resolve or holds something else."""
+    mod, _, attr = name.partition(":")
+    try:
+        obj = importlib.import_module(mod)
+        for part in attr.split("."):
+            obj = getattr(obj, part)
+    except (ImportError, AttributeError, ValueError):
+        return None
+
+    def number(v):
+        if isinstance(v, torch.Tensor) and v.dim() == 0:
+            return float(v.item())
+        if isinstance(v, numbers.Real) and not isinstance(v, bool):
+            return float(v)
+        return None
+    if isinstance(obj, dict):
+        vals = {k: number(v) for k, v in obj.items()}
+        return None if None in vals.values() else vals
+    return number(obj)
+
+
+def counter_delta(a, b):
+    """The difference of two ``read_counter`` snapshots of one name."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return {k: v - a.get(k, 0.0) for k, v in b.items()}
+    if isinstance(a, float) and isinstance(b, float):
+        return b - a
+    return None
+
+
+def read_counters(names) -> Dict[str, object]:
+    return {n: read_counter(n) for n in names}
+
+
+@contextlib.contextmanager
+def program_tracer(on: bool):
+    """The program's ``WallTracer`` installed for the body (``None``, and
+    the program's tracer left as it is, where ``on`` is false); the
+    previous tracer comes back however the body ends."""
+    if not on:
+        yield None
+        return
+    from repro_torch.obs import use_tracer
+    from repro_torch.obs.wall import WallTracer
+    with use_tracer(WallTracer(profile=False)) as tracer:
+        yield tracer
+
+
+def totals(tracer) -> Dict[str, Tuple[int, float]]:
+    return dict(tracer.totals) if tracer is not None else {}
 
 
 # -------------------------------------------------------------- window --
@@ -238,36 +324,52 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     cfg = archs.read_config(bench_dir, cell["config"])
     spec = read_json(bench_dir / "traffic" / f"{cell['traffic']}.json")
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-
     url, built = store.ensure(root, cfg, device, index_mode, log,
                               cache=bench_dir / ".cache")
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    engine, db = make_engine(cfg, url, device, kernel_mode, index_mode)
-    traffic = Traffic(spec, list(cfg["variants"]), cfg["vocab_size"], seed)
-    keep = check.plan(traffic, seed)
-    t0, c0 = time.perf_counter(), time.process_time()
-    warm = traffic.warm()
-    for variant, rows in warm:
-        one_query(engine, variant, rows, traffic.steps)
-    sync()
-    log(f"[setup] {len(warm)} warm-up queries {time.perf_counter() - t0:.2f}"
-        f" s ({time.process_time() - c0:.2f} s of host CPU), the first "
-        f"switches from the store included; "
-        f"{time.perf_counter() - t_start:.2f} s since the process began")
-    run = Run(cell, cfg, spec, [], 0.0, time.perf_counter() - t_start,
-              read_json(bench_dir / "peaks.json"))
-
-    prof = contextlib.nullcontext()
-    if trace:
-        from torch.profiler import ProfilerActivity, profile
-        _Timed(engine, run, sync)
-        prof = profile(activities=[ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if cuda else []))
-    with prof:
-        run.queries, run.window_s = window(engine, traffic, seconds, trace,
-                                           cfg["vocab_size"], log, keep)
+    kind = "end_to_end" if not trace else "per_layer"
+    readers = {m["name"]: (m, load_module(bench_dir, "metrics", m["name"]))
+               for m in metrics_of(bench, workload, kind)}
+    counted = sorted({n for _, mod in readers.values()
+                      for n in getattr(mod, "COUNTERS", ())})
+    with program_tracer(trace) as tracer:
+        at_build = totals(tracer)
+        engine, db = make_engine(cfg, url, device, kernel_mode, index_mode)
+        traffic = Traffic(spec, list(cfg["variants"]), cfg["vocab_size"],
+                          seed)
+        keep = check.plan(traffic, seed)
+        t0, c0 = time.perf_counter(), time.process_time()
+        warm = traffic.warm()
+        for variant, rows in warm:
+            one_query(engine, variant, rows, traffic.steps)
         sync()
+        log(f"[setup] {len(warm)} warm-up queries "
+            f"{time.perf_counter() - t0:.2f} s ({time.process_time() - c0:.2f}"
+            f" s of host CPU), the first switches from the store included; "
+            f"{time.perf_counter() - t_start:.2f} s since the process began")
+        run = Run(cell, cfg, spec, [], 0.0, time.perf_counter() - t_start,
+                  read_json(bench_dir / "peaks.json"))
+        at_start, counts_start = totals(tracer), read_counters(counted)
+
+        prof = contextlib.nullcontext()
+        if trace:
+            from torch.profiler import ProfilerActivity, profile
+            _Timed(engine, run, sync)
+            prof = profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if cuda else []))
+        with prof:
+            run.queries, run.window_s = window(engine, traffic, seconds,
+                                               trace, cfg["vocab_size"], log,
+                                               keep)
+            sync()
+            at_end, counts_end = totals(tracer), read_counters(counted)
+    run.setup_spans = span_delta(at_build, at_start)
+    run.spans = span_delta(at_start, at_end)
+    for n in counted:
+        delta = counter_delta(counts_start[n], counts_end[n])
+        if delta is not None:
+            run.counters[n] = delta
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     if trace:
         from portbench import trace as trace_mod
@@ -276,12 +378,11 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
 
     attempted = len(run.queries)
     failed = sum(q.served is None for q in run.queries)
-    kind = "end_to_end" if not trace else "per_layer"
     metrics = {}
-    for m in metrics_of(bench, workload, kind):
-        value = load_module(bench_dir, "metrics", m["name"]).read(run)
+    for name, (m, reader) in readers.items():
+        value = reader.read(run)
         if value is not None:
-            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+            metrics[name] = {"value": value, "unit": m["unit"]}
 
     # the program's state goes before the reference runs; the sampled
     # queries' logits are outputs, kept on the host

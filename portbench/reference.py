@@ -22,6 +22,12 @@ as the configuration files state them:
 mlp(norm(x)); ``hybrid`` (Hymba) reads attention and the mixer off one
 norm of x, x += (attn + mixer) / 2, then the feed-forward.
 
+An architecture that routes calls ``Reference.select`` for its top-k:
+the lower index first among equal scores (the program's order), and each
+row's smallest margin between the k-th and the (k+1)-th score at the
+positions ``last_logits`` compares, over every call of the forward, kept
+in ``Reference.margins`` for the check's tie set (``check.py``).
+
 ``precision="fp8"`` is the control: every linear layer's operands are
 rounded to float8 e4m3 with an absmax scale per row of the activation and
 per output column of the weight, the next precision below the
@@ -78,6 +84,9 @@ class Reference:
         self.cfg, self.w, self.precision = cfg, w, precision
         self.eps = float(cfg["rms_norm_eps"])
         self.arch = archs.of(cfg)
+        self._n_last = 1
+        self._block = None                 # the block's [rows] margins
+        self._margins = []                 # the finished blocks'
 
     def layer(self, prefix: Tuple[str, ...], i: int) -> Dict:
         """{name: layer i's slice} of the leaves under ``prefix``
@@ -87,6 +96,27 @@ class Reference:
                 if p[:n] == prefix}
 
     # ---------------------------------------------------------- pieces --
+    def select(self, scores, k: int):
+        """The indices [B, S, k] of the ``k`` largest of ``scores`` [B, S,
+        E] (the block's rows), the lower index first among equal ones;
+        keeps each row's smallest margin between its k-th and (k+1)-th
+        score at the last ``n_last`` positions."""
+        if self._block is None or scores.shape[0] != self._block.shape[0]:
+            raise ValueError(f"select takes scores [rows, positions, E] of "
+                             f"the forward's rows, not {tuple(scores.shape)}")
+        vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+        if k < scores.shape[-1]:
+            gap = vals[..., k - 1] - vals[..., k]
+            self._block = torch.minimum(
+                self._block, gap[:, -self._n_last:].amin(-1).to(F32))
+        return idx[..., :k]
+
+    @property
+    def margins(self) -> torch.Tensor:
+        """[n] each row's smallest routing margin in the last
+        ``last_logits`` call; ``inf`` where nothing was routed."""
+        return torch.cat(self._margins)
+
     def linear(self, x, wt):
         """x [..., n] @ wt [n, m] in the run's precision."""
         if self.precision == "fp8":
@@ -190,10 +220,16 @@ class Reference:
                     n_last: int = 1) -> torch.Tensor:
         """[n, S] token ids -> [n, n_last, V] float32 logits of the last
         ``n_last`` positions, ``block`` rows at a time."""
+        self._n_last, self._margins, out = n_last, [], []
         with torch.no_grad(), no_tf32():
-            return torch.cat([self.arch.forward(self, tokens[r:r + block],
-                                                n_last)
-                              for r in range(0, tokens.shape[0], block)])
+            for r in range(0, tokens.shape[0], block):
+                rows = tokens[r:r + block]
+                self._block = torch.full((rows.shape[0],), float("inf"),
+                                         device=rows.device)
+                out.append(self.arch.forward(self, rows, n_last))
+                self._margins.append(self._block)
+        self._block = None
+        return torch.cat(out)
 
 
 def flat_weights(tree: Dict) -> Dict:

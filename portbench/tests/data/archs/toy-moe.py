@@ -5,8 +5,9 @@ layers (``blocks``): attention, then top-k softmax routing over
 k gates renormalised to sum to 1, and no token dropped (the capacity
 factor covers every token).  A test checkout adds it as a file alone.
 
-The plain reference routes each token in float32 and runs each expert
-over the tokens that chose it; the program routes through a bfloat16
+The plain reference routes each token in float32 (``ref.select``, which
+keeps each row's routing margin for the check's tie set) and runs each
+expert over the tokens that chose it; the program routes through a bfloat16
 product and runs every expert over its capacity slots.
 """
 from __future__ import annotations
@@ -69,10 +70,15 @@ def leaf_specs(cfg: Dict) -> List[weights.Spec]:
             specs += weights.mlp_specs((g, "mlp"), n, d, z["f"], out_std)
         else:
             m = (g, "moe")
-            specs += [(m + ("router",), (n, d, E), "fan_in_uniform", 0.0),
-                      (m + ("ew1",), (n, E, d, fe), "normal", 0.02),
-                      (m + ("ew3",), (n, E, d, fe), "normal", 0.02),
-                      (m + ("ew2",), (n, E, fe, d), "normal", out_std)]
+            # the experts at torch.nn.Linear's scale, so that they carry
+            # the stream: at the normal 0.02 / out_std of the other layers
+            # their output was ~3% of it, and neither one expert layer in
+            # float8 nor its router off by 10% moved the logits
+            specs += [(m + (leaf,), shape, "fan_in_uniform", 0.0)
+                      for leaf, shape in (("router", (n, d, E)),
+                                          ("ew1", (n, E, d, fe)),
+                                          ("ew3", (n, E, d, fe)),
+                                          ("ew2", (n, E, fe, d)))]
     return specs + weights.head_specs(d, z["V"])
 
 
@@ -103,9 +109,11 @@ def program_config(cfg: Dict):
 
 def experts(ref, h, p: Dict, k: int):
     """Each token through the k experts its router puts first, weighted
-    by their softmax probabilities renormalised over the k."""
+    by their softmax probabilities renormalised over the k; the choice on
+    the probabilities, as the program's (``ref.select``)."""
     probs = torch.softmax(ref.linear(h, p["router"]), dim=-1)
-    top, idx = probs.topk(k, dim=-1)
+    idx = ref.select(probs, k)
+    top = probs.gather(-1, idx)
     gates = top / top.sum(-1, keepdim=True)
     y = torch.zeros_like(h)
     for e in range(probs.shape[-1]):

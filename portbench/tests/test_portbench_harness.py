@@ -15,7 +15,10 @@ from tiny import ROOT, make_root, run_tiny
 from portbench import store
 
 E2E = {"rows_per_s", "query_p95_ms", "setup_s"}
-LAYER = {"switch_ms", "compute_ms", "prefill_mfu", "device_idle_pct"}
+LAYER = {"switch_ms", "compute_ms", "prefill_mfu", "device_idle_pct",
+         "engine_host_ms", "switch_access_ms", "switch_assemble_ms",
+         "switch_rebuild_ms", "setup_fault_s", "setup_sqlite_s",
+         "split_bf16x3_launches"}
 
 
 @pytest.mark.parametrize("cell", ["tiny-d", "tiny-h", "tiny-m"])
@@ -175,6 +178,29 @@ def test_a_new_architecture_traced_on_the_card(cuda_device, tiny_root):
     assert r["correct"] and r["device"]["platform"] == "gpu"
     for m in ("prefill_mfu", "flash_attention_roofline"):
         assert 0 < r["metrics"][m]["value"] <= 105
+    tied = r["check"]["tied_share"]
+    assert 0 < tied["value"] <= tied["limit"]
+    # the program's spans and counters reach the readers on the card
+    for m in ("engine_host_ms", "switch_access_ms", "setup_fault_s"):
+        assert r["metrics"][m]["value"] > 0
+    assert "split_bf16x3_launches" in r["metrics"]
+
+
+@pytest.mark.cuda
+def test_ties_on_the_card(cuda_device, tiny_root):
+    """On the card: the toy MoE's rows that route as the float32
+    reference does pass the limits on each seed, where over every row
+    the widest error may not; the float8 control fails them."""
+    from portbench import archs, control
+    limits = archs.read_config(tiny_root / "portbench", "tiny-moe")["check"]
+    recs = control.readings(tiny_root, "tiny-m", [31, 32, 33, 34, 35, 36],
+                            30.0, device=cuda_device, log=print)
+    for r in recs:
+        assert r["failed"] == 0 and r["rows"] > 0
+        assert 0 < r["tied_share"] <= limits["tied_limit"]
+        assert r["program_logit_err"] <= limits["logit_limit"]
+        assert r["program_gap"] <= limits["gap_limit"]
+        assert r["control_logit_err"] > limits["logit_limit"]
 
 
 @pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 5, 3 * 2 ** 40])

@@ -125,3 +125,62 @@ def test_weights_are_served_rounded_and_variants_share():
     assert not torch.equal(a["v1"][w1][1], a["v0"][w1][1])
     assert a["v1"][("embed",)] is a["v0"][("embed",)]
     assert np.isfinite(a["v0"][("blocks", "ln1", "scale")].numpy()).all()
+
+
+def selecting(B=2, S=5):
+    """A reference whose forward is over ``B`` rows (as ``last_logits``
+    sets it up), for ``select`` alone."""
+    cfg, ref = ref_for("tiny-dense")
+    ref._n_last, ref._margins = 1, []
+    ref._block = torch.full((B,), float("inf"))
+    return ref
+
+
+def test_select_puts_the_lower_index_first_among_equal_scores():
+    ref = selecting(B=1, S=1)
+    scores = torch.tensor([[[0.2, 0.5, 0.2, 0.5, 0.1]]])
+    assert ref.select(scores, 3).tolist() == [[[1, 3, 0]]]
+    # the margin between the 3rd and 4th is 0: a tie
+    assert ref._block.tolist() == [0.0]
+
+
+def test_select_keeps_each_rows_least_margin_at_the_last_positions():
+    ref = selecting(B=2)
+    s = torch.tensor([[0.6, 0.3, 0.1], [0.5, 0.45, 0.05]])
+    scores = torch.stack([s[0].expand(5, 3), s[1].expand(5, 3)]).clone()
+    scores[0, 0] = torch.tensor([0.4, 0.4, 0.2])   # not a compared position
+    ref.select(scores, 1)
+    torch.testing.assert_close(ref._block, torch.tensor([0.3, 0.05]))
+    ref.select(scores[:, :, [1, 0, 2]], 2)         # a second routed layer
+    torch.testing.assert_close(ref._block, torch.tensor([0.2, 0.05]))
+    # every expert chosen: no (k+1)-th, no margin
+    ref.select(scores, 3)
+    torch.testing.assert_close(ref._block, torch.tensor([0.2, 0.05]))
+    with pytest.raises(ValueError):
+        ref.select(scores[:1], 1)                  # not the block's rows
+
+
+def test_margins_are_inf_where_nothing_routes():
+    cfg, ref = ref_for("tiny-dense")
+    ref.last_logits(tokens(cfg, n=5), block=2)
+    assert ref.margins.shape == (5,) and torch.isinf(ref.margins).all()
+
+
+def test_margins_cover_every_block_and_position_compared():
+    """The toy routes through ``select``: its margins, a row's least over
+    its routed layers, are the same whichever way the rows are blocked,
+    and over more compared positions they can only shrink."""
+    from tiny import DATA
+    from portbench import archs, load_module
+    cfg = archs.Config(tiny("tiny-moe"))
+    cfg.arch = load_module(DATA, "archs", "toy-moe")
+    w = flat_weights(weights.variant_weights(cfg, "cpu")["v0"])
+    ref = Reference(cfg, w)
+    t = tokens(cfg, n=6)
+    ref.last_logits(t, block=6)
+    whole = ref.margins.clone()
+    ref.last_logits(t, block=4)
+    torch.testing.assert_close(ref.margins, whole, rtol=0, atol=0)
+    assert torch.isfinite(whole).all() and (whole >= 0).all()
+    ref.last_logits(t, block=6, n_last=4)
+    assert (ref.margins <= whole).all() and (ref.margins < whole).any()
